@@ -4,15 +4,22 @@
     python3 chip_smoke.py
 
 1. device: the card's name, its power limit (nvidia-smi), torch and CUDA;
-2. build: compiles the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build: compiles the four CUDA sources from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel);
-3. kernels: each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, timed with CUDA events (median of repeated windows),
-   beside its bound and one library call as a yardstick;
+3. kernels: each of the eight kernels (B1-B8) against its plain PyTorch
+   version on the card, at the main paths' shapes (the gathered scans over
+   the candidate matrix of the ADR index from real queries, B6 over the int8
+   codes of the serving KB) and on tie-heavy grid KBs, timed with CUDA events
+   (median of repeated windows), beside its bound and one library call as a
+   yardstick;
 4. serving: full-width ralm-gpt2-medium (random weights from a seed) over a
-   500k x 768 EDR KB through ``build_stack(..., backend="kernel")``: RaLMSeq,
-   then a 4-slot FleetServer (variant psa); checks that the tokens are identical and that
-   every kernel was launched on that path;
+   500k x 768 KB: EDR through ``build_stack(..., backend="kernel")``, then ADR
+   on the same model and KB (one kernel backend holds the fp32 KB for both),
+   then EDR and ADR on the ``int8-kernel`` backend; each path serves RaLMSeq,
+   then a 4-slot FleetServer (variant psa), checks that the tokens are
+   identical and that the path's kernels were launched on it (counts set to 0
+   just before the path and read just after); recall@20 of int8 against fp32
+   over the queries the int8 paths served;
 5. one JSON line with every kernel's numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -21,6 +28,8 @@ exits with code 2 before printing any result.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -79,6 +88,27 @@ def grid_rows(rng, n, d, dev):
                            device=dev)
 
 
+def compare_topk(tag: str, s_k, i_k, s_p, i_p, k: int):
+    """A kernel's top k against its plain version's top k + 1, where the
+    summation orders differ: scores within 1e-5; where the k-th and
+    (k+1)-th plain scores differ by more than 1e-5 the id sets agree, and
+    inside the set ids only trade places with a neighbour whose plain score
+    is within 1e-5. Returns (max |dscore|, rows with a clear k-th gap)."""
+    torch.cuda.synchronize()
+    err = (s_k - s_p[:, :k]).abs().max().item()
+    check(err <= 1e-5, f"{tag}: |dscore| {err}")
+    gap = (s_p[:, k - 1] - s_p[:, k]) > 1e-5
+    near = torch.zeros_like(i_k, dtype=torch.bool)
+    sp = s_p[:, :k]
+    near[:, 1:] |= (sp[:, :-1] - sp[:, 1:]) <= 1e-5
+    near[:, :-1] |= (sp[:, :-1] - sp[:, 1:]) <= 1e-5
+    bad = (i_k != i_p[:, :k]) & ~near
+    check(not bad[gap].any(), f"{tag}: ids differ")
+    same_set = torch.sort(i_k, 1).values == torch.sort(i_p[:, :k], 1).values
+    check(same_set[gap].all(), f"{tag}: id sets differ")
+    return err, gap
+
+
 # ---------------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------------
@@ -92,21 +122,7 @@ def check_dense_topk(dev, N: int, d: int, report: dict) -> None:
         for k in (1, 20, 256):
             s_k, i_k = K.dense_topk(q, kb, k)
             s_p, i_p = K.dense_topk_plain(q, kb, k + 1)
-            torch.cuda.synchronize()
-            err = (s_k - s_p[:, :k]).abs().max().item()
-            check(err <= 1e-5, f"B1 B={B} k={k}: |dscore| {err}")
-            # where the k-th and (k+1)-th plain scores differ by more than 1e-5
-            # the sets must agree; inside the set, ids may only trade places
-            # with a neighbour whose plain score is within 1e-5
-            gap = (s_p[:, k - 1] - s_p[:, k]) > 1e-5
-            near = torch.zeros_like(i_k, dtype=torch.bool)
-            sp = s_p[:, :k]
-            near[:, 1:] |= (sp[:, :-1] - sp[:, 1:]) <= 1e-5
-            near[:, :-1] |= (sp[:, :-1] - sp[:, 1:]) <= 1e-5
-            bad = (i_k != i_p[:, :k]) & ~near
-            check(not bad[gap].any(), f"B1 B={B} k={k}: ids differ")
-            same_set = torch.sort(i_k, 1).values == torch.sort(i_p[:, :k], 1).values
-            check(same_set[gap].all(), f"B1 B={B} k={k}: id sets differ")
+            err, gap = compare_topk(f"B1 B={B} k={k}", s_k, i_k, s_p, i_p, k)
             ms = cuda_ms(lambda: K.dense_topk(q, kb, k))
             plain = cuda_ms(lambda: K.dense_topk_plain(q, kb, k))
             lib = cuda_ms(lambda: torch.topk(q @ kb.T, k))
@@ -122,7 +138,7 @@ def check_dense_topk(dev, N: int, d: int, report: dict) -> None:
     # tie-heavy grid KB, N a multiple of no tile: byte-identical, batch-invariant
     rng = np.random.default_rng(3)
     base = grid_rows(rng, 375, 64, dev)
-    gkb = base.repeat(8, 1)[:3001].contiguous()
+    gkb = base.repeat(9, 1)[:3001].contiguous()
     qs = grid_rows(rng, 12, 64, dev)
     for k in (1, 20, 256):
         s12, i12 = K.dense_topk(qs, gkb, k)
@@ -210,16 +226,223 @@ def check_prefill_attention(dev, report: dict) -> None:
                                                shape=f"B=1 S={S} H=KV={H} hd={hd} causal")
 
 
+# the one PyTorch call (or composed call) timed beside each kernel
+LIBRARY_CALLS = {
+    "dense_topk": "torch.topk(q @ kb.T)",
+    "decode_attention": "scaled_dot_product_attention",
+    "prefill_attention": "scaled_dot_product_attention(is_causal=True)",
+    "fused_gathered_topk": "torch.topk(einsum(q, kb[cand]) masked)",
+    "gathered_topk": "torch.topk(einsum(q, emb) masked)",
+    "quant_dense_topk": "torch.topk((q @ codes.float().T) * scales)",
+    "quant_fused_gathered_topk": "torch.topk(einsum(q, codes[cand].float()) * scales[cand] masked)",
+    "quant_gathered_topk": "torch.topk(einsum(q, emb.float()) * scl masked)",
+}
+
+
+def ragged_cand(rng, B, C, N):
+    """Id-sorted candidate rows of ragged width with -1 pads; row 0 repeats
+    an id, row 2 is all pad."""
+    cand = np.full((B, C), -1, np.int32)
+    for b in range(B):
+        if b != 2:
+            w = int(rng.integers(1, min(C, N)))
+            cand[b, :w] = np.sort(rng.choice(N, size=w, replace=False))
+    cand[0, 1] = cand[0, 0]
+    return cand
+
+
+def gathered_args(q, kb, codes, scales, cand):
+    """Each gathered scan's arguments: B4 and B7 take the resident KB, B5 and
+    B8 the slabs gathered from it."""
+    safe = cand.clamp(min=0).long()
+    return {"fused_gathered_topk": (q, kb, cand),
+            "gathered_topk": (q, kb[safe], cand),
+            "quant_fused_gathered_topk": (q, codes, scales, cand),
+            "quant_gathered_topk": (q, codes[safe], scales[safe], cand)}
+
+
+def check_gathered(dev, kb, codes, scales, ivf, queries: np.ndarray, report: dict) -> None:
+    """B4, B5, B7, B8 at the serving shape (the 500k x 768 KB and its int8
+    codes, real queries, the ADR index's candidate matrix), then on a
+    tie-heavy grid KB."""
+    from repro_torch.kernels import gathered_topk as GT
+    from repro_torch.retrieval.backends import quantize_kb
+    d = kb.shape[1]
+    for B in (1, 12):
+        q = torch.as_tensor(queries[:B], device=dev)
+        for k in (1, 20, 256):
+            cand_np, counts = ivf._gather_candidates(queries[:B], k)
+            cand = torch.as_tensor(cand_np.astype(np.int32), device=dev)
+            real = cand >= 0
+            C, n_real = cand.shape[1], int(real.sum())
+            n_rows = int(torch.unique(cand[real]).numel())   # distinct KB rows
+            if k == 1:
+                print(f"ADR candidate matrix at B={B}: C={C}, real candidates per query "
+                      f"{counts.min()}..{counts.max()} (mean {counts.mean():.0f}), "
+                      f"{n_real} in all, {n_rows} distinct KB rows")
+            args = gathered_args(q, kb, codes, scales, cand)
+            # the least bytes: each needed row once (distinct KB rows for the
+            # resident KB, every real slab row for a slab), ids, q, results
+            side = 4.0 * (B * C + B * d + 2 * B * k)
+            need = {"fused_gathered_topk": n_rows * d * 4, "gathered_topk": n_real * d * 4,
+                    "quant_fused_gathered_topk": n_rows * (d + 4),
+                    "quant_gathered_topk": n_real * (d + 4)}
+            out = {}
+            for name, a in args.items():
+                out[name] = getattr(GT, name)(*a, k)
+                plain = getattr(GT, f"{name}_plain")(*a, k + 1)
+                err, gap = compare_topk(f"{name} B={B} k={k}", *out[name], *plain, k)
+                ms = cuda_ms(lambda: getattr(GT, name)(*a, k))
+                plain_ms = cuda_ms(lambda: getattr(GT, f"{name}_plain")(*a, k))
+                quant = name.startswith("quant")
+                safe = a[-1].clamp(min=0).long()
+
+                def library():
+                    if name == "fused_gathered_topk":
+                        s = torch.einsum("bd,bcd->bc", q, kb[safe])
+                    elif name == "gathered_topk":
+                        s = torch.einsum("bd,bcd->bc", q, a[1])
+                    elif name == "quant_fused_gathered_topk":
+                        s = torch.einsum("bd,bcd->bc", q, codes[safe].float()) * scales[safe]
+                    else:
+                        s = torch.einsum("bd,bcd->bc", q, a[1].float()) * a[2]
+                    return torch.topk(s.masked_fill(~real, GT.NEG), k)
+                lib = cuda_ms(library)
+                bms, by = bound_ms(need[name] + side, 2.0 * n_real * d + (n_real if quant else 0))
+                print(f"{name} B={B:2d} k={k:3d} C={C}: kernel {ms:.4f} ms  plain "
+                      f"{plain_ms:.4f} ms  {LIBRARY_CALLS[name]} {lib:.4f} ms  bound "
+                      f"{bms:.4f} ms ({by})  max|dscore| {err:.2e}  rows with a clear "
+                      f"k-th gap {int(gap.sum())}/{B}")
+                if (B, k) == (12, 20):        # the fleet's merged psa probe
+                    report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                        bound_ms=bms, bound_by=by, library_ms=lib,
+                                        shape=f"B={B} N={kb.shape[0]} d={d} C={C} "
+                                              f"real={n_real} distinct={n_rows} k={k}")
+            for x, y in (("fused_gathered_topk", "gathered_topk"),
+                         ("quant_fused_gathered_topk", "quant_gathered_topk")):
+                check(torch.equal(out[x][0], out[y][0]) and torch.equal(out[x][1], out[y][1]),
+                      f"{x} != {y} at B={B} k={k}")
+            del args, out
+    # tie-heavy grid KB at the serving width: ragged C, a duplicate id, an
+    # all-pad row; byte-identical to the plain versions, B=1 rows == B=12 rows
+    rng = np.random.default_rng(4)
+    gkb = grid_rows(rng, 375, d, dev).repeat(9, 1)[:3001].contiguous()
+    gcodes, gscales = (torch.as_tensor(x, device=dev) for x in quantize_kb(gkb.cpu().numpy()))
+    gq = grid_rows(rng, 12, d, dev)
+    gcand = torch.as_tensor(ragged_cand(rng, 12, 1300, 3001), device=dev)
+    args = gathered_args(gq, gkb, gcodes, gscales, gcand)
+    for k in (1, 20, 256):
+        out = {}
+        for name, a in args.items():
+            out[name] = getattr(GT, name)(*a, k)
+            plain = getattr(GT, f"{name}_plain")(*a, k)
+            check(torch.equal(out[name][0], plain[0]) and torch.equal(out[name][1], plain[1]),
+                  f"{name} grid k={k}: kernel != plain")
+            one = getattr(GT, name)(*(t[:1].contiguous() if t.shape[0] == 12 else t
+                                      for t in a), k)
+            check(torch.equal(one[0][0], out[name][0][0]) and torch.equal(one[1][0], out[name][1][0]),
+                  f"{name} grid k={k}: B=1 row != B=12 row")
+        check(torch.equal(out["fused_gathered_topk"][1], out["gathered_topk"][1])
+              and torch.equal(out["fused_gathered_topk"][0], out["gathered_topk"][0])
+              and torch.equal(out["quant_fused_gathered_topk"][1], out["quant_gathered_topk"][1])
+              and torch.equal(out["quant_fused_gathered_topk"][0], out["quant_gathered_topk"][0]),
+              f"grid k={k}: fused != pre-gathered")
+        check(bool((out["fused_gathered_topk"][1][2] == -1).all()), "all-pad row not (NEG, -1)")
+    print(f"B4 B5 B7 B8 grid KB N=3001 d={d} (tie-heavy), B=12 C=1300 ragged with a "
+          f"duplicate id and an all-pad row, k in {{1, 20, 256}}: kernel == plain byte "
+          f"for byte, B4 == B5, B7 == B8, B=1 rows == B=12 rows")
+
+
+def check_quant_topk(dev, codes, scales, queries: np.ndarray, report: dict) -> None:
+    """B6 over the int8 codes of the serving KB at B in {1, 12, 64}, with B1's
+    checks, then byte equality and batch invariance on a tie-heavy grid KB."""
+    from repro_torch.kernels import quant_topk as K
+    from repro_torch.retrieval.backends import quantize_kb
+    N, d = codes.shape
+    for B in (1, 12, 64):
+        q = torch.as_tensor(queries[:B], device=dev)
+        for k in (1, 20, 256):
+            s_k, i_k = K.quant_dense_topk(q, codes, scales, k)
+            s_p, i_p = K.quant_dense_topk_plain(q, codes, scales, k + 1)
+            err, gap = compare_topk(f"B6 B={B} k={k}", s_k, i_k, s_p, i_p, k)
+            ms = cuda_ms(lambda: K.quant_dense_topk(q, codes, scales, k))
+            plain = cuda_ms(lambda: K.quant_dense_topk_plain(q, codes, scales, k))
+            lib = cuda_ms(lambda: torch.topk((q @ codes.float().T) * scales, k))
+            bms, by = bound_ms(N * d + 4.0 * (N + B * d + 2 * B * k),
+                               2.0 * B * N * d + B * N)
+            print(f"B6 quant_dense_topk N={N} d={d} B={B:3d} k={k:3d}: kernel {ms:.4f} ms  "
+                  f"plain {plain:.4f} ms  torch.topk((q@codes.float().T)*scales) {lib:.4f} ms  "
+                  f"bound {bms:.4f} ms ({by})  max|dscore| {err:.2e}  "
+                  f"rows with a clear k-th gap {int(gap.sum())}/{B}")
+            if (B, k) == (12, 20):
+                report["quant_dense_topk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                                  bound_ms=bms, bound_by=by, library_ms=lib,
+                                                  shape=f"B={B} N={N} d={d} k={k} int8")
+    rng = np.random.default_rng(5)
+    gcodes, gscales = (torch.as_tensor(x, device=dev) for x in quantize_kb(
+        grid_rows(rng, 375, 64, dev).repeat(9, 1)[:3001].cpu().numpy()))
+    qs = grid_rows(rng, 12, 64, dev)
+    for k in (1, 20, 256):
+        s12, i12 = K.quant_dense_topk(qs, gcodes, gscales, k)
+        s1, i1 = K.quant_dense_topk(qs[:1].contiguous(), gcodes, gscales, k)
+        sp, ip = K.quant_dense_topk_plain(qs, gcodes, gscales, k)
+        check(torch.equal(s12, sp) and torch.equal(i12, ip), f"B6 grid k={k}")
+        check(torch.equal(s1, s12[:1]) and torch.equal(i1, i12[:1]), f"B6 B=1 vs 12 k={k}")
+    print("B6 grid KB N=3001 d=64 (tie-heavy), k in {1, 20, 256}: kernel == plain byte "
+          "for byte, B=1 rows == B=12 rows")
+
+
 # ---------------------------------------------------------------------------------
-# phase 4: the port's main path at full width
+# phase 4: the port's main paths at full width
 # ---------------------------------------------------------------------------------
-def serve_full_width(dev) -> dict:
+def kernel_modules():
+    from repro_torch.kernels import (decode_attention, dense_topk, gathered_topk,
+                                     prefill_attention, quant_topk)
+    return dense_topk, decode_attention, prefill_attention, quant_topk, gathered_topk
+
+
+def reset_counts() -> None:
+    *single, gathered = kernel_modules()
+    for m in single:
+        m.launches = 0
+    for name in gathered.launches:
+        gathered.launches[name] = 0
+
+
+def read_counts() -> dict:
+    dense, decode, prefill, quant, gathered = kernel_modules()
+    return {"dense_topk": dense.launches, "decode_attention": decode.launches,
+            "prefill_attention": prefill.launches, "quant_dense_topk": quant.launches,
+            **gathered.launches}
+
+
+class RecordingBackend:
+    """Delegates to a backend and keeps each query batch (and candidate
+    matrix) it is asked, for the recall check after serving."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.asked = []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def search(self, queries, k):
+        self.asked.append((queries, None))
+        return self.inner.search(queries, k)
+
+    def search_gathered(self, queries, cand, k):
+        self.asked.append((queries, cand))
+        return self.inner.search_gathered(queries, cand, k)
+
+
+def build_serving(dev):
+    """The EDR stack at full width over the 500k x 768 KB, the ADR index over
+    the same KB on the same kernel backend, and the int8 kernel backend."""
     from repro_torch.configs import RaLMConfig
-    from repro_torch.kernels import decode_attention, dense_topk, prefill_attention
-    from repro_torch.launch.serve import build_stack, make_server, variant_config
-    from repro_torch.serving.batched import BatchedServeEngine, _tree_map
-    from repro_torch.serving.engine import ServeEngine
-    from repro_torch.training.data import make_queries
+    from repro_torch.launch.serve import build_stack, variant_config
+    from repro_torch.retrieval.backends import TorchQuantizedKernelBackend
+    from repro_torch.retrieval.retrievers import IVFRetriever
 
     t0 = time.perf_counter()
     rcfg = variant_config("psa", RaLMConfig(max_new_tokens=48))
@@ -233,44 +456,69 @@ def serve_full_width(dev) -> dict:
           f"{cfg.vocab_size}; EDR KB {stack.retriever.kb.embeddings.shape} on the card "
           f"({stack.retriever.backend.kb_bytes / 1e9:.2f} GB); built in "
           f"{time.perf_counter() - t0:.1f} s")
-    prompts = [(q * 12)[:48] for q in make_queries(stack.docs, 8)]
-    mods = (dense_topk, decode_attention, prefill_attention)
-    for m in mods:
-        m.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ivf = IVFRetriever(stack.retriever.kb, backend=stack.retriever.backend)
+    sizes = np.asarray([len(b) for b in ivf.buckets])
+    print(f"ADR index: {len(sizes)} clusters, nprobe {ivf.nprobe}, buckets "
+          f"{sizes.min()}..{sizes.max()} docs, C = {ivf._cand_width(20)}; k-means on the "
+          f"host in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    qb = TorchQuantizedKernelBackend(stack.retriever.kb.embeddings, device=dev)
+    print(f"int8 KB: {qb.kb_bytes / 1e9:.3f} GB of codes and scales on the card; "
+          f"quantized in {time.perf_counter() - t0:.1f} s")
+    return stack, ivf, qb
 
+
+def serve_path(stack, prompts, label: str, kernels) -> dict:
+    """RaLMSeq, then a 4-slot psa fleet, over one stack: the tokens must be
+    identical, every fleet group must make one merged KB call per round plus
+    its seed call, and each kernel in ``kernels`` must have been launched.
+    The launch counts are set to 0 just before and read just after."""
+    from repro_torch.launch.serve import make_server
+    reset_counts()
+    torch.cuda.synchronize()
     seq = make_server(stack, scheduler="seq")
     t = time.perf_counter()
     seq_res = [seq.serve(p) for p in prompts]
     seq_wall = time.perf_counter() - t
     n_tok = sum(len(r.tokens) for r in seq_res)
-    print(f"RaLMSeq   x8: wall {seq_wall:.3f} s  G {sum(r.gen_time for r in seq_res):.3f} s  "
-          f"R {sum(r.retrieval_time for r in seq_res):.3f} s  {n_tok / seq_wall:.1f} tok/s  "
+    print(f"{label} RaLMSeq   x{len(prompts)}: wall {seq_wall:.3f} s  G "
+          f"{sum(r.gen_time for r in seq_res):.3f} s  R "
+          f"{sum(r.retrieval_time for r in seq_res):.3f} s  {n_tok / seq_wall:.1f} tok/s  "
           f"KB calls {sum(r.kb_calls for r in seq_res)}")
     fleet_res, fleet_wall, rounds, kb_calls = [], 0.0, 0, 0
     with make_server(stack, scheduler="fixed", n_slots=4) as fleet:
         for i in range(0, len(prompts), 4):
             fr = fleet.serve(prompts[i:i + 4])
             check(fr.kb_errors == 0 and fr.degraded_rounds == 0 and fr.worker_crashes == 0,
-                  "a fleet KB call failed")
+                  f"{label}: a fleet KB call failed")
+            check(fr.kb_calls == fr.rounds + 1,
+                  f"{label}: {fr.kb_calls} KB calls in {fr.rounds} rounds")
             fleet_res += fr.results
             fleet_wall += fr.wall_time
             rounds += fr.rounds
             kb_calls += fr.kb_calls
+    torch.cuda.synchronize()
+    counts = read_counts()
     g = sum(r.gen_time for r in fleet_res[::4])       # one fleet-wide ledger per group
     r_t = sum(r.retrieval_time for r in fleet_res[::4])
-    print(f"Fleet x4 psa x8: wall {fleet_wall:.3f} s  G {g:.3f} s  R {r_t:.3f} s  "
-          f"{n_tok / fleet_wall:.1f} tok/s  rounds {rounds}  KB calls {kb_calls}  "
-          f"speed-up over RaLMSeq {seq_wall / fleet_wall:.2f}x")
-    counts = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label} Fleet x4 psa x{len(prompts)}: wall {fleet_wall:.3f} s  G {g:.3f} s  "
+          f"R {r_t:.3f} s  {n_tok / fleet_wall:.1f} tok/s  rounds {rounds}  KB calls "
+          f"{kb_calls}  speed-up over RaLMSeq {seq_wall / fleet_wall:.2f}x")
     same = [a.tokens == b.tokens for a, b in zip(seq_res, fleet_res)]
-    print(f"serving: launches {counts}  peak device memory {peak:.2f} GiB  "
+    print(f"{label}: launches {({n: c for n, c in counts.items() if c})}  "
           f"outputs identical: {all(same)}")
-    check(all(same), f"fleet tokens differ from RaLMSeq: {same}")
-    check(all(len(r.tokens) == 48 for r in seq_res), "RaLMSeq stopped short of 48 tokens")
-    check(all(v > 0 for v in counts.values()), f"a kernel was not launched: {counts}")
+    check(all(same), f"{label}: fleet tokens differ from RaLMSeq: {same}")
+    check(all(len(r.tokens) == 48 for r in seq_res), f"{label}: RaLMSeq stopped short")
+    check(all(counts[n] > 0 for n in kernels), f"{label}: a kernel was not launched: {counts}")
+    return counts
+
+
+def engine_checks(stack, prompts, dev) -> None:
+    """Batch variance of the decode step, the cost of functional snapshots,
+    and where a decode step and a re-prefill spend their time."""
+    from repro_torch.serving.batched import BatchedServeEngine, _tree_map
+    from repro_torch.serving.engine import ServeEngine
 
     # batch variance: one slot of a batched decode step vs the same context alone
     docs = [tuple(stack.docs[i][:64]) for i in range(4)]
@@ -325,7 +573,23 @@ def serve_full_width(dev) -> dict:
         print(f"profile {label}: {ms:.4f} ms per call (CUDA events), device busy "
               f"{busy:.4f} ms ({busy / ms:.1%}), idle {1 - busy / ms:.1%}; top device "
               f"time per call (ms): {top}")
-    return counts
+
+
+def recall_at(k: int, recorded, fp32, quant) -> dict:
+    """recall@k of the int8 backend against the fp32 one over the query
+    batches the int8 paths served, split by EDR (full scan) and ADR (probe)."""
+    hits = {"EDR": [], "ADR": []}
+    for queries, cand in recorded:
+        if cand is None:
+            want, got = fp32.search(queries, k)[0], quant.search(queries, k)[0]
+        else:
+            want = fp32.search_gathered(queries, cand, k)[0]
+            got = quant.search_gathered(queries, cand, k)[0]
+        for w, g in zip(want, got):
+            ref = set(int(i) for i in w if i >= 0)
+            hits["EDR" if cand is None else "ADR"].append(
+                len(ref & set(int(i) for i in g if i >= 0)) / max(len(ref), 1))
+    return {n: (float(np.mean(h)), len(h)) for n, h in hits.items()}
 
 
 def main() -> int:
@@ -336,6 +600,8 @@ def main() -> int:
     dev = torch.device("cuda:0")
     import repro_torch  # noqa: F401  (switches TF32 off)
     from repro_torch.kernels import _build
+    from repro_torch.retrieval.retrievers import ExactDenseRetriever, RetrieverStats
+    from repro_torch.training.data import make_queries
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -344,33 +610,78 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32}/{torch.backends.cudnn.allow_tf32}")
     t = time.perf_counter()
     logs = _build.build_all()
-    print(f"build: {len(logs)} kernels in {time.perf_counter() - t:.1f} s")
+    print(f"build: {len(logs)} sources in {time.perf_counter() - t:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    # phase 3: every kernel against its plain version
     report: dict = {}
+    reset_counts()
     check_dense_topk(dev, SERVE_N_DOCS, SERVE_ENC_DIM, report)
     check_decode_attention(dev, report)
     check_prefill_attention(dev, report)
-    counts = serve_full_width(dev)
+    stack, ivf, qb = build_serving(dev)
+    prompts = [(q * 12)[:48] for q in make_queries(stack.docs, 64)]
+    queries = stack.encoder.encode_batch(prompts)       # what RaLMSeq asks first
+    fp32 = stack.retriever.backend
+    # the tensors the serving paths scan: the fp32 KB, the int8 codes and scales
+    check_gathered(dev, fp32._kb, qb._codes, qb._scales, ivf, queries[:12], report)
+    check_quant_topk(dev, qb._codes, qb._scales, queries, report)
+    check_counts = read_counts()
+    torch.cuda.empty_cache()
 
-    sources = {"dense_topk": ("src/repro_torch/kernels/csrc/dense_topk.cu",
-                              "src/repro/kernels/dense_topk.py:188"),
-               "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                                    "src/repro/kernels/decode_attention.py:66"),
-               "prefill_attention": ("src/repro_torch/kernels/csrc/prefill_attention.cu",
-                                     "src/repro/kernels/prefill_attention.py:90")}
+    # phase 4: the serving paths, each with its own launch counts
+    prompts = prompts[:8]
+    torch.cuda.reset_peak_memory_stats()
+    paths = {"EDR kernel": serve_path(stack, prompts, "EDR kernel",
+                                      ("dense_topk", "decode_attention", "prefill_attention"))}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"EDR kernel: peak device memory {peak:.2f} GiB")
+    adr = dataclasses.replace(stack, retriever=ivf, retriever_kind="adr", engine=None)
+    paths["ADR kernel"] = serve_path(adr, prompts, "ADR kernel", ("fused_gathered_topk",))
+    rec = RecordingBackend(qb)
+    qedr = dataclasses.replace(stack, retriever=ExactDenseRetriever(stack.retriever.kb,
+                                                                    backend=rec),
+                               backend="int8-kernel", engine=None)
+    paths["EDR int8-kernel"] = serve_path(qedr, prompts[:4], "EDR int8-kernel",
+                                          ("quant_dense_topk",))
+    qivf = copy.copy(ivf)                             # the same index, int8 backend
+    qivf.backend, qivf.stats = rec, RetrieverStats("linear_intercept")
+    qadr = dataclasses.replace(adr, retriever=qivf, backend="int8-kernel", engine=None)
+    paths["ADR int8-kernel"] = serve_path(qadr, prompts[:4], "ADR int8-kernel",
+                                          ("quant_fused_gathered_topk",))
+    counts = {n: sum(c[n] for c in paths.values()) for n in check_counts}
+    # last: host dispatch stays slower after torch.profiler has run
+    engine_checks(stack, prompts, dev)
+    recall = recall_at(20, rec.asked, fp32, qb)
+    print("recall@20 of int8-kernel against kernel over the served query rows: " +
+          ", ".join(f"{n} {r:.4f} ({m} rows)" for n, (r, m) in recall.items()))
+
+    src = "src/repro_torch/kernels/csrc/"
+    sources = {"dense_topk": ("dense_topk.cu", "dense_topk.py:188"),
+               "decode_attention": ("decode_attention.cu", "decode_attention.py:66"),
+               "prefill_attention": ("prefill_attention.cu", "prefill_attention.py:90"),
+               "fused_gathered_topk": ("gathered_topk.cu", "dense_topk.py:460"),
+               "gathered_topk": ("gathered_topk.cu", "dense_topk.py:145"),
+               "quant_dense_topk": ("dense_topk.cu", "dense_topk.py:295"),
+               "quant_fused_gathered_topk": ("gathered_topk.cu", "dense_topk.py:578"),
+               "quant_gathered_topk": ("gathered_topk.cu", "dense_topk.py:340")}
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (cu, replaces) in sources.items():
         r = report[name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counts[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "shape": r["shape"]})
+        entry = {"name": name, "route": "cuda", "source": src + cu,
+                 "replaces": "src/repro/kernels/" + replaces, "launches": counts[name],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                 "library_call": LIBRARY_CALLS[name], "shape": r["shape"]}
+        if name in ("gathered_topk", "quant_gathered_topk"):
+            # no serving route in either package: its launches are phase 3's
+            entry["launches"] = check_counts[name]
+            entry["launches_from"] = "phase 3 checks (no serving route in either package)"
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,10 @@
 // EDR full scan: scores = q . kb^T in fp32, then the top-k per query in the
-// canonical order (score descending, then id ascending).
+// canonical order (score descending, then id ascending). The same scan over
+// an int8 KB (codes plus a per-row fp32 scale) is B6.
 //
 // Replaces: src/repro/kernels/dense_topk.py::dense_topk_pallas (line 188;
-// body _topk_kernel, merge _select_topk).
+// body _topk_kernel, merge _select_topk) and, templated on int8 rows,
+// dense_topk.py::quant_topk_pallas (line 295; body _quant_topk_kernel).
 //
 // Bound on an H100: at the small batches of the serving path (B = 1 for
 // RaLMSeq, B ~ slots x stride for the fleet) the scan reads the whole KB once,
@@ -34,8 +36,14 @@
 // row. Every score is one thread's fmaf chain over d = 0..d-1 in order, so it
 // does not depend on B, on the query block or on the split: a query's row of
 // results is the same whatever batch it arrives in.
-#include <cuda_runtime.h>
-#include <stdint.h>
+//
+// int8 rows (B6): 16 codes per 16-byte load, cast to fp32 in registers as
+// they are staged, so the scoring loop is B1's; the row's scale multiplies
+// the finished score before its key is formed, the TPU kernel's order
+// (q . (s*c) == s * (q . c) in the reals). The scan reads N*d bytes, a
+// quarter of B1's, so at the fleet's B ~ 12 the 2*B*N*d fp32 FLOPs bound it
+// (9.2 GFLOP, 0.14 ms at 67 TFLOP/s) and at B = 1 the 384 MB read (0.11 ms).
+#include "topk_common.cuh"
 
 namespace {
 
@@ -44,51 +52,31 @@ constexpr int kSplitRows = 1024;   // KB rows per CTA (512 for 16-query blocks)
 constexpr int kTileRows = 256;     // rows scored per pass over d (one per thread)
 constexpr int kChunkD = 32;        // columns of d staged per step
 constexpr int kRowStride = kChunkD + 4;  // staged row pitch: float4 reads without bank conflicts
-constexpr int kMergeThreads = 1024;
-constexpr int kMergeBuf = 2048;    // keys sorted at once in the merge
-constexpr float kNeg = -3.4e38f;
 
-__device__ __forceinline__ uint32_t ord_of(float f) {
-  uint32_t u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+// One 16-byte load of KB row elements -> fp32 in shared memory: 4 floats
+// as they are, or 16 int8 codes cast in registers.
+__device__ __forceinline__ void stage(float* dst, uint4 v, float) {
+  *reinterpret_cast<uint4*>(dst) = v;
 }
 
-__device__ __forceinline__ float float_of(uint32_t o) {
-  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+__device__ __forceinline__ void stage(float* dst, uint4 v, int8_t) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(dst + 4 * i) = make_float4(
+        static_cast<float>(static_cast<int8_t>(w[i] & 0xffu)),
+        static_cast<float>(static_cast<int8_t>((w[i] >> 8) & 0xffu)),
+        static_cast<float>(static_cast<int8_t>((w[i] >> 16) & 0xffu)),
+        static_cast<float>(static_cast<int8_t>(w[i] >> 24)));
 }
 
-__device__ __forceinline__ uint64_t make_key(float s, int id) {
-  if (s == 0.0f) s = 0.0f;         // -0 and +0 tie, as they do on the host
-  return (static_cast<uint64_t>(ord_of(s)) << 32) |
-         static_cast<uint32_t>(~static_cast<uint32_t>(id));
-}
-
-// Sort nseg segments of N keys each (N a power of two) descending, in place.
-// Strides are powers of two, so pair indices come from bit operations.
-template <int N>
-__device__ void bitonic_desc(uint64_t* keys, int nseg) {
-  constexpr int kHalf = N / 2;
-  const int pairs = nseg * kHalf;
-  for (int size = 2; size <= N; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < pairs; i += blockDim.x) {
-        const int seg = i / kHalf, ii = i % kHalf;
-        const int a = ii + (ii & -stride);     // 2*stride*(ii/stride) + ii%stride
-        const bool desc = (a & size) == 0;
-        uint64_t* base = keys + static_cast<size_t>(seg) * N;
-        const uint64_t x = base[a], y = base[a + stride];
-        if ((x < y) == desc) { base[a] = y; base[a + stride] = x; }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-template <int QB, int SR>
+template <int QB, int SR, typename T>
 __global__ void __launch_bounds__(kThreads)
-topk_partial_kernel(const float* __restrict__ q, const float* __restrict__ kb,
-                    uint64_t* __restrict__ partial, int B, int N, int d, int k) {
-  constexpr int kLoads = kTileRows * (kChunkD / 4) / kThreads;   // float4 per thread
+topk_partial_kernel(const float* __restrict__ q, const T* __restrict__ kb,
+                    const float* __restrict__ scales, uint64_t* __restrict__ partial,
+                    int B, int N, int d, int k) {
+  constexpr int kVec = 16 / sizeof(T);                            // elements per 16-byte load
+  constexpr int kLoads = kTileRows * (kChunkD / kVec) / kThreads; // loads per thread per step
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* keys = reinterpret_cast<uint64_t*>(smem);             // [QB][SR]
   float* kbt = reinterpret_cast<float*>(keys + QB * SR);          // [kTileRows][kRowStride]
@@ -103,17 +91,17 @@ topk_partial_kernel(const float* __restrict__ q, const float* __restrict__ kb,
 
   // the next chunk of KB rows is loaded into registers while the current one
   // is scored from shared memory, so device-memory latency overlaps the FMAs
-  float4 pre[kLoads];
+  uint4 pre[kLoads];
   auto load = [&](int step) {
     const int tile0 = row0 + (step / nchunk) * kTileRows;
     const int c0 = (step % nchunk) * kChunkD;
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
       const int f = tid + u * kThreads;
-      const int grow = tile0 + f / (kChunkD / 4), gcol = c0 + (f % (kChunkD / 4)) * 4;
-      pre[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      const int grow = tile0 + f / (kChunkD / kVec), gcol = c0 + (f % (kChunkD / kVec)) * kVec;
+      pre[u] = make_uint4(0u, 0u, 0u, 0u);
       if (grow < N && gcol < d)
-        pre[u] = *reinterpret_cast<const float4*>(kb + static_cast<size_t>(grow) * d + gcol);
+        pre[u] = *reinterpret_cast<const uint4*>(kb + static_cast<size_t>(grow) * d + gcol);
     }
   };
 
@@ -126,8 +114,8 @@ topk_partial_kernel(const float* __restrict__ q, const float* __restrict__ kb,
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
       const int f = tid + u * kThreads;
-      *reinterpret_cast<float4*>(kbt + (f / (kChunkD / 4)) * kRowStride +
-                                 (f % (kChunkD / 4)) * 4) = pre[u];
+      stage(kbt + (f / (kChunkD / kVec)) * kRowStride + (f % (kChunkD / kVec)) * kVec,
+            pre[u], T());
     }
     for (int f = tid; f < QB * kChunkD; f += kThreads) {
       const int j = f / kChunkD, c = f % kChunkD;
@@ -161,10 +149,13 @@ topk_partial_kernel(const float* __restrict__ q, const float* __restrict__ kb,
     }
     if (step % nchunk == nchunk - 1) {           // this tile's rows are scored
       const int grow = row0 + t * kTileRows + tid;
+      // int8 rows: the row's scale multiplies the finished score
+      const float scale = (scales != nullptr && grow < N) ? scales[grow] : 1.0f;
 #pragma unroll
       for (int j = 0; j < QB; ++j) {
+        const float s = scales != nullptr ? acc[j] * scale : acc[j];
         keys[j * SR + t * kTileRows + tid] =
-            grow < N ? make_key(acc[j], grow) : make_key(kNeg, -1);
+            grow < N ? make_key(s, grow) : make_key(kNeg, -1);
         acc[j] = 0.0f;
       }
     }
@@ -179,47 +170,37 @@ topk_partial_kernel(const float* __restrict__ q, const float* __restrict__ kb,
   }
 }
 
-// One level of the merge: each CTA sorts the lists [g*G, g*G + G) of one
-// query (G * k <= kMergeBuf keys) and keeps the best k, so every level cuts
-// the lists per query by G. The last level (one list left) writes scores and
-// ids instead of keys.
-__global__ void __launch_bounds__(kMergeThreads)
-topk_merge_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
-                  float* __restrict__ scores, int* __restrict__ ids, int n_in, int k,
-                  int G) {
-  __shared__ uint64_t buf[kMergeBuf];
-  const int g = blockIdx.x, b = blockIdx.y, n_out = gridDim.x;
-  const int total = min(G, n_in - g * G) * k;
-  const uint64_t* src = in + (static_cast<size_t>(b) * n_in + g * G) * k;
-  for (int x = threadIdx.x; x < kMergeBuf; x += blockDim.x)
-    buf[x] = x < total ? src[x] : 0ull;        // empty slot: the smallest key
-  __syncthreads();
-  bitonic_desc<kMergeBuf>(buf, 1);
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
-    const uint64_t key = buf[i];
-    if (n_out > 1) {
-      out[(static_cast<size_t>(b) * n_out + g) * k + i] = key;
-    } else {
-      scores[static_cast<size_t>(b) * k + i] = float_of(static_cast<uint32_t>(key >> 32));
-      ids[static_cast<size_t>(b) * k + i] = static_cast<int>(~static_cast<uint32_t>(key));
-    }
-  }
-}
-
-template <int QB, int SR>
-void launch_partial(const float* q, const float* kb, uint64_t* partial, int B,
-                    int N, int d, int k, cudaStream_t stream) {
+template <int QB, int SR, typename T>
+void launch_partial(const float* q, const T* kb, const float* scales, uint64_t* partial,
+                    int B, int N, int d, int k, cudaStream_t stream) {
   const size_t smem = sizeof(uint64_t) * QB * SR +
                       sizeof(float) * (kTileRows * kRowStride + kChunkD * QB);
-  cudaFuncSetAttribute(topk_partial_kernel<QB, SR>,
+  cudaFuncSetAttribute(topk_partial_kernel<QB, SR, T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   dim3 grid((B + QB - 1) / QB, (N + SR - 1) / SR);
-  topk_partial_kernel<QB, SR><<<grid, kThreads, smem, stream>>>(q, kb, partial, B, N, d, k);
+  topk_partial_kernel<QB, SR, T><<<grid, kThreads, smem, stream>>>(q, kb, scales, partial,
+                                                                    B, N, d, k);
 }
 
 // KB rows per split for a batch of B queries (query blocks of 16 take half
 // the rows, to keep their sort keys within shared memory)
 int split_rows(int B) { return B > 8 ? kSplitRows / 2 : kSplitRows; }
+
+template <typename T>
+int scan(const float* q, const T* kb, const float* scales, uint64_t* partial,
+         float* scores, int* ids, int B, int N, int d, int k, cudaStream_t stream) {
+  if (B == 1)
+    launch_partial<1, kSplitRows>(q, kb, scales, partial, B, N, d, k, stream);
+  else if (B <= 4)
+    launch_partial<4, kSplitRows>(q, kb, scales, partial, B, N, d, k, stream);
+  else if (B <= 8)
+    launch_partial<8, kSplitRows>(q, kb, scales, partial, B, N, d, k, stream);
+  else
+    launch_partial<16, kSplitRows / 2>(q, kb, scales, partial, B, N, d, k, stream);
+  launch_merge(partial, scores, ids, B, (N + split_rows(B) - 1) / split_rows(B), k,
+               nullptr, 0, stream);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -231,26 +212,13 @@ extern "C" int dense_topk_split_rows(int B) { return split_rows(B); }
 extern "C" int dense_topk_launch(const float* q, const float* kb, uint64_t* partial,
                                  float* scores, int* ids, int B, int N, int d, int k,
                                  cudaStream_t stream) {
-  if (B == 1)
-    launch_partial<1, kSplitRows>(q, kb, partial, B, N, d, k, stream);
-  else if (B <= 4)
-    launch_partial<4, kSplitRows>(q, kb, partial, B, N, d, k, stream);
-  else if (B <= 8)
-    launch_partial<8, kSplitRows>(q, kb, partial, B, N, d, k, stream);
-  else
-    launch_partial<16, kSplitRows / 2>(q, kb, partial, B, N, d, k, stream);
-  // merge levels, ping-ponging between the split lists and a second region of
-  // ceil(n_splits / 8) lists (G >= 8 since k <= 256; the lists only shrink)
-  int n = (N + split_rows(B) - 1) / split_rows(B);
-  const int G = kMergeBuf / k;
-  uint64_t* bufs[2] = {partial, partial + static_cast<size_t>(B) * k * n};
-  int cur = 0;
-  do {
-    const int n_out = (n + G - 1) / G;
-    topk_merge_kernel<<<dim3(n_out, B), kMergeThreads, 0, stream>>>(
-        bufs[cur], bufs[cur ^ 1], scores, ids, n, k, G);
-    n = n_out;
-    cur ^= 1;
-  } while (n > 1);
-  return static_cast<int>(cudaGetLastError());
+  return scan<float>(q, kb, nullptr, partial, scores, ids, B, N, d, k, stream);
+}
+
+// B6: the same scan over int8 codes (N, d) with fp32 row scales (N,): the
+// score is (q . float(code)) * scale. The caller guarantees d % 16 == 0.
+extern "C" int quant_topk_launch(const float* q, const int8_t* codes, const float* scales,
+                                 uint64_t* partial, float* scores, int* ids, int B, int N,
+                                 int d, int k, cudaStream_t stream) {
+  return scan<int8_t>(q, codes, scales, partial, scores, ids, B, N, d, k, stream);
 }

@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
         --retriever edr --retriever-backend kernel --mode both --concurrency 4
 
-Builds the synthetic Wikipedia-like corpus, the EDR retriever, the GPT-2-medium
+Builds the synthetic Wikipedia-like corpus, the EDR or ADR retriever, the GPT-2-medium
 class host LM (reduced to 2 layers unless ``--full-width``), and serves
 QA-style requests with RaLMSeq (baseline) and/or RaLMSpec, printing the
 paper-style G/R latency decomposition. ``--concurrency N`` (N > 1) serves the
@@ -32,7 +32,7 @@ from repro_torch.models.model import build_model
 from repro_torch.retrieval.backends import BACKENDS
 from repro_torch.retrieval.encoder import ContextEncoder
 from repro_torch.retrieval.kb import DenseKB
-from repro_torch.retrieval.retrievers import ExactDenseRetriever
+from repro_torch.retrieval.retrievers import ExactDenseRetriever, IVFRetriever
 from repro_torch.serving.batched import BatchedServeEngine
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.fleet import FleetServer
@@ -44,10 +44,11 @@ SCHEDULERS = ("seq", "single", "fixed")
 
 # The capability table: (workload, retriever) -> supported execution
 # backends. Every listed cell runs under every scheduler in SCHEDULERS.
-# ADR, SR, KNN-LM, the sharded and int8 backends and continuous batching are
-# later slices (ROADMAP.md).
+# SR, KNN-LM, the sharded backends and continuous batching are later slices
+# (ROADMAP.md).
 CAPABILITIES = {
     ("ralm", "edr"): BACKENDS,
+    ("ralm", "adr"): BACKENDS,
 }
 
 
@@ -115,7 +116,8 @@ def build_stack(retriever: str, *, n_docs: int = 20000,
     docs = synthetic_corpus(n_docs, cfg.vocab_size)
     enc = ContextEncoder(cfg.vocab_size, d=enc_dim)
     kb = DenseKB.build(docs, enc)
-    retr = ExactDenseRetriever(kb, backend=backend, device=dev)
+    retr = (ExactDenseRetriever(kb, backend=backend, device=dev)
+            if retriever == "edr" else IVFRetriever(kb, backend=backend, device=dev))
     return ServeStack(cfg=cfg, model=model, params=params, docs=docs,
                       encoder=enc, retriever=retr, rcfg=rcfg,
                       workload=default_workload(rcfg),
@@ -166,7 +168,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(allow_abbrev=False)
     ap.add_argument("--workload", default="ralm",
                     help="ralm: iterative RaLM (Algorithm 1, byte-parity)")
-    ap.add_argument("--retriever", default="edr")
+    ap.add_argument("--retriever", default="edr",
+                    help="edr (exact dense scan) or adr (IVF probe)")
     ap.add_argument("--mode", choices=["seq", "spec", "both"], default="both")
     ap.add_argument("--variant", default="psa",
                     help="subset of 'psa': prefetch / OS3 scheduler / async")
@@ -187,8 +190,9 @@ def main() -> None:
                          "verification KB call with the next lockstep "
                          "speculation stride (implied by a variant containing 'a')")
     ap.add_argument("--retriever-backend", default="numpy",
-                    help="dense scoring backend: numpy, or kernel (the CUDA "
-                         "dense top-k kernel, KB resident on the device)")
+                    help="dense scoring backend: numpy, kernel (the CUDA "
+                         "scans, KB resident on the device), int8 (numpy over "
+                         "the int8 KB) or int8-kernel (the CUDA int8 scans)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the model's random parameters")
     ap.add_argument("--shared-cache", action="store_true",
@@ -248,7 +252,7 @@ def main() -> None:
     print(f"device {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host'}), "
           f"model {stack.cfg.name}: {stack.cfg.num_layers} layers, "
           f"d_model {stack.cfg.d_model}, vocab {stack.cfg.vocab_size}; "
-          f"EDR backend {stack.retriever.backend.name}, "
+          f"{stack.retriever.name} backend {stack.retriever.backend.name}, "
           f"KB {len(stack.docs)} x {args.enc_dim}")
     prompts = [(q * 12)[:48] for q in make_queries(stack.docs, args.requests)]
 

@@ -3,21 +3,28 @@
 The port's counterpart of ``repro.retrieval.backends``, with the strategies
 this slice runs:
 
-  * :class:`FlatBackend`        (``numpy``) — the numpy argpartition scan
-                                  (single host, BLAS), copied from the
-                                  reference.
-  * :class:`TorchKernelBackend` (``kernel``) — the EDR scan through the CUDA
-                                  dense top-k kernel (B1,
-                                  ``repro_torch.kernels.dense_topk``), with the
-                                  KB embeddings put on the device once, at
-                                  construction.
+  * :class:`FlatBackend`           (``numpy``) — the numpy argpartition scan
+                                     (single host, BLAS), copied from the
+                                     reference.
+  * :class:`TorchKernelBackend`    (``kernel``) — the EDR scan through the
+                                     CUDA dense top-k kernel (B1) and the ADR
+                                     probe through the fused gathered scan
+                                     (B4), with the KB embeddings put on the
+                                     device once, at construction.
+  * :class:`QuantizedFlatBackend`  (``int8``) — the numpy scan over the int8
+                                     KB, copied from the reference.
+  * :class:`TorchQuantizedKernelBackend` (``int8-kernel``) — the int8 codes and
+                                     scales on the device once; EDR through
+                                     the int8 scan (B6), ADR through the int8
+                                     fused gathered scan (B7).
 
-Both return identical ``(ids, scores)`` under the CANONICAL tie order — score
-descending, then id ascending — so the serving layers can swap them without
-perturbing a served token. Backends are pure scans: the ``RetrieverStats``
-bookkeeping lives in the retriever wrapper (``retrievers._TimedRetriever``).
-The sharded and int8 backends, and the gathered (ADR) scan on the device, are
-later slices (ROADMAP.md).
+The fp32 backends return identical ``(ids, scores)`` under the CANONICAL tie
+order — score descending, then id ascending — so the serving layers can swap
+them without perturbing a served token; the int8 pair is identical to each
+other and holds recall@k >= 0.95 against the fp32 scan. Backends are pure
+scans: the ``RetrieverStats`` bookkeeping lives in the retriever wrapper
+(``retrievers._TimedRetriever``). The sharded backends are a later slice
+(ROADMAP.md item 11).
 """
 from __future__ import annotations
 
@@ -26,9 +33,11 @@ from typing import Protocol, Tuple, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.kernels import gathered_topk as GT
 from repro_torch.kernels.dense_topk import dense_topk
+from repro_torch.kernels.quant_topk import quant_dense_topk
 
-BACKENDS = ("numpy", "kernel")
+BACKENDS = ("numpy", "kernel", "int8", "int8-kernel")
 
 
 @runtime_checkable
@@ -75,9 +84,11 @@ class DenseSearchBackend(Protocol):
     def gathered_scratch_bytes(self, B: int, C: int) -> int:
         """Peak candidate-buffer bytes ONE ``search_gathered`` call at batch B
         and candidate width C materializes — the gathered-embedding scratch,
-        not the resident KB. Kernel/sharded backends route through the fused
-        in-kernel gather, so this is a (B, block_c, d) tile independent of C;
-        the numpy paths report their row-chunked host scratch. Benchmarks
+        not the resident KB. The kernel backends gather inside the kernel on
+        the card, so this is the wrapper's partial-list sort keys, a few
+        bytes per (query, column split, k) and no rows at all (their plain
+        versions on the CPU gather the (B, C, d) rows); the numpy paths
+        report their row-chunked host scratch. Benchmarks
         record it next to :meth:`pregathered_scratch_bytes` (the (B, C, d)
         tensor the pre-gathered path would build) to track the reduction."""
         ...
@@ -162,6 +173,64 @@ def gathered_scores(embeddings: np.ndarray, queries: np.ndarray,
     return np.where(cand >= 0, s, -np.inf)
 
 
+def quantize_kb(embeddings: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-row symmetric int8 quantization of a KB embedding matrix:
+    ``(N, d) float -> (codes (N, d) int8, scales (N,) float32)`` with
+    ``scales = max(|row|) / 127`` (floored at 1e-12 so all-zero rows stay
+    finite) and ``codes = clip(rint(row / scale), -127, 127)``. In numpy, as
+    in the reference, so the codes equal the JAX package's byte for byte;
+    every int8 backend calls THIS function, so both score one code matrix."""
+    emb = np.asarray(embeddings, np.float32)
+    maxabs = np.abs(emb).max(axis=1, initial=0.0)
+    scales = (np.maximum(maxabs, np.float32(1e-12))
+              / np.float32(127.0)).astype(np.float32)
+    codes = np.clip(np.rint(emb / scales[:, None]), -127, 127).astype(np.int8)
+    return codes, scales
+
+
+def quant_scores(codes: np.ndarray, scales: np.ndarray,
+                 queries: np.ndarray) -> np.ndarray:
+    """Dequantized full scan ``(q @ codes.T) * scales`` -> (B, N) float32.
+    The scale multiply lands on the score matrix (a per-row scale is constant
+    along d, so ``q . (s*c) == s * (q . c)`` exactly in the reals) — the same
+    operation order as the int8 kernel. KB-row chunked so the fp32 cast of
+    the codes stays ~64MB scratch instead of a full fp32 KB copy per call."""
+    B, (N, d) = queries.shape[0], codes.shape
+    s = np.empty((B, N), np.float32)
+    step = max(1, 16_000_000 // max(d, 1))
+    for i in range(0, N, step):
+        blk = codes[i:i + step].astype(np.float32)
+        s[:, i:i + step] = (queries @ blk.T) * scales[None, i:i + step]
+    return s
+
+
+def quant_gathered_scores(codes: np.ndarray, scales: np.ndarray,
+                          queries: np.ndarray, cand: np.ndarray) -> np.ndarray:
+    """:func:`gathered_scores` over an int8 KB: each query scores ITS
+    candidate rows as ``(q . code) * scale``; pad slots (``cand < 0``) at
+    ``-inf``. Same ~64MB row chunking as the fp32 path."""
+    B, C = cand.shape
+    d = codes.shape[1]
+    s = np.empty((B, C), np.float32)
+    step = max(1, 16_000_000 // max(C * d, 1))
+    for i in range(0, B, step):
+        idx = np.maximum(cand[i:i + step], 0)
+        emb = codes[idx].astype(np.float32)
+        s[i:i + step] = (np.matmul(emb, queries[i:i + step, :, None])[..., 0]
+                         * scales[idx])
+    return np.where(cand >= 0, s, -np.inf)
+
+
+def _stable_gathered_topk(s: np.ndarray, cand: np.ndarray,
+                          k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """cand columns are id-sorted with pads (-inf) last, so a stable sort on
+    score alone IS the canonical order — and pads can never displace real
+    candidates."""
+    order = np.argsort(-s, axis=1, kind="stable")[:, :min(k, cand.shape[1])]
+    ids = np.take_along_axis(cand, order, axis=1).astype(np.int64)
+    return ids, np.take_along_axis(s, order, axis=1).astype(np.float32)
+
+
 def _sentinels_to_contract(ids, scores) -> Tuple[np.ndarray, np.ndarray]:
     """Device gathered-scan output -> the search_gathered contract: pad slots
     carry the NEG sentinel on device (kernels/dense_topk.NEG) with id -1;
@@ -205,24 +274,32 @@ class FlatBackend:
     def search_gathered(self, queries: np.ndarray, cand: np.ndarray,
                         k: int) -> Tuple[np.ndarray, np.ndarray]:
         s = gathered_scores(self.embeddings, queries, cand)
-        k2 = min(k, cand.shape[1])
-        # cand columns are id-sorted with pads (-inf) last, so a stable sort
-        # on score alone IS the canonical order — and pads can never displace
-        # real candidates
-        order = np.argsort(-s, axis=1, kind="stable")[:, :k2]
-        ids = np.take_along_axis(cand, order, axis=1).astype(np.int64)
         self.calls += 1
-        return ids, np.take_along_axis(s, order, axis=1).astype(np.float32)
+        return _stable_gathered_topk(s, cand, k)
+
+
+def _to_device(array: np.ndarray, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(array, dtype)).to(device)
+
+
+def _kernel_scratch_bytes(device, B: int, C: int, k: int, row_bytes: int) -> int:
+    """Bytes one gathered kernel-wrapper call allocates beyond its inputs and
+    outputs: on CUDA the partial-list sort keys (8 bytes each); on the CPU the
+    plain version's gathered rows, cast to fp32 ((B, C, d) x 4 bytes)."""
+    if device.type == "cuda":
+        return 8 * GT.scratch_keys(B, C, min(k, C))
+    return B * C * row_bytes
 
 
 class TorchKernelBackend(_JitShapeMixin):
-    """EDR scan through the CUDA dense top-k kernel (B1). The KB embedding
-    matrix is put on ``device`` ONCE here — per-call uploads of a multi-GB
-    index would dwarf the scan itself; each call moves only the (B, d)
-    queries to the device and the (B, k) results back. On a CPU device the
-    kernel wrapper runs its plain PyTorch version (same results on the
+    """EDR scan through the CUDA dense top-k kernel (B1), ADR probe through
+    the fused gathered scan (B4). The KB embedding matrix is put on
+    ``device`` ONCE here — per-call uploads of a multi-GB index would dwarf
+    the scan itself; each call moves only the (B, d) queries (and the (B, C)
+    candidate ids) to the device and the (B, k) results back. On a CPU device
+    the kernel wrappers run their plain PyTorch versions (same results on the
     grid-quantized KBs the tests use). ``cold_shape`` flags the first call
-    per (B, k) like the reference's jit cache: on the card that call also
+    per shape like the reference's jit cache: on the card that call also
     pays the kernel library's load."""
 
     name = "kernel"
@@ -231,15 +308,21 @@ class TorchKernelBackend(_JitShapeMixin):
     def __init__(self, embeddings: np.ndarray, device=None):
         from repro_torch import resolve_device
         self.device = resolve_device(device)
-        self._kb = torch.as_tensor(np.asarray(embeddings, np.float32)).to(
-            self.device).contiguous()
+        self._kb = _to_device(embeddings, np.float32, self.device)
         self.kb_bytes = self._kb.numel() * self._kb.element_size()
         self.calls = 0
         self._init_shapes(self._kb.shape[0])
 
+    def gathered_scratch_bytes(self, B: int, C: int, k: int = GT.MAX_K) -> int:
+        """What one ``search_gathered`` call's kernel wrapper allocates at
+        this k (default: the largest the kernel takes)."""
+        return _kernel_scratch_bytes(self.device, B, C, k, self._kb.shape[1] * 4)
+
+    def pregathered_scratch_bytes(self, B: int, C: int) -> int:
+        return B * C * self._kb.shape[1] * 4
+
     def search(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        q = torch.as_tensor(np.ascontiguousarray(queries, np.float32)).to(
-            self.device)
+        q = _to_device(queries, np.float32, self.device)
         # same k > N clamp as the other backends: identical (B, min(k, N))
         # results everywhere
         scores, ids = dense_topk(q, self._kb, min(k, self._kb.shape[0]))
@@ -248,15 +331,116 @@ class TorchKernelBackend(_JitShapeMixin):
 
     def search_gathered(self, queries: np.ndarray, cand: np.ndarray,
                         k: int) -> Tuple[np.ndarray, np.ndarray]:
-        raise NotImplementedError(
-            "TorchKernelBackend.search_gathered (the ADR probe, kernels B4/B5) "
-            "comes with the ADR slice; use backend='numpy' for IVF retrieval")
+        q = _to_device(queries, np.float32, self.device)
+        c = _to_device(cand, np.int32, self.device)
+        scores, ids = GT.fused_gathered_topk(q, self._kb, c, min(k, cand.shape[1]))
+        self.calls += 1
+        return _sentinels_to_contract(ids.cpu().numpy(), scores.cpu().numpy())
+
+
+class QuantizedFlatBackend:
+    """Single-host numpy scan over the int8 KB: the quantized family's
+    reference semantics. Scores are ``(q @ codes.T) * scales`` with the scale
+    multiply on the score matrix (the kernel's operation order), then the
+    same canonical top-k as :class:`FlatBackend`. Inexact by contract — what
+    it promises is recall@k >= 0.95 vs the fp32 scan, not byte-parity."""
+
+    name = "int8"
+    exact = False
+
+    def __init__(self, embeddings: np.ndarray):
+        self.codes, self.scales = quantize_kb(embeddings)
+        self.kb_bytes = self.codes.nbytes + self.scales.nbytes
+        self.calls = 0
+
+    def cold_shape(self, B: int, k: int) -> bool:
+        return False                     # nothing compiles
+
+    def cold_shape_gathered(self, B: int, C: int, k: int) -> bool:
+        return False
+
+    def gathered_scratch_bytes(self, B: int, C: int) -> int:
+        # quant_gathered_scores casts each row-chunk's codes to f32
+        d = self.codes.shape[1]
+        step = max(1, 16_000_000 // max(C * d, 1))
+        return min(B, step) * C * d * 4
+
+    def pregathered_scratch_bytes(self, B: int, C: int) -> int:
+        return B * C * (self.codes.shape[1] + 4)    # int8 codes + f32 scales
+
+    def search(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        s = quant_scores(self.codes, self.scales,
+                         np.asarray(queries, np.float32))
+        self.calls += 1
+        return canonical_topk(s, k)
+
+    def search_gathered(self, queries: np.ndarray, cand: np.ndarray,
+                        k: int) -> Tuple[np.ndarray, np.ndarray]:
+        s = quant_gathered_scores(self.codes, self.scales,
+                                  np.asarray(queries, np.float32), cand)
+        self.calls += 1
+        return _stable_gathered_topk(s, cand, k)
+
+
+class TorchQuantizedKernelBackend(_JitShapeMixin):
+    """The int8 scans on the device: codes and fp32 row scales from
+    :func:`quantize_kb` are put on ``device`` ONCE here. EDR runs the int8
+    scan (B6), which reads a quarter of the fp32 KB's bytes; the ADR probe
+    runs the int8 fused gathered scan (B7), which gathers each candidate's
+    codes and scale by id. Inexact by contract, like
+    :class:`QuantizedFlatBackend`, whose results it equals."""
+
+    name = "int8-kernel"
+    exact = False
+
+    def __init__(self, embeddings: np.ndarray, device=None):
+        from repro_torch import resolve_device
+        self.device = resolve_device(device)
+        codes, scales = quantize_kb(embeddings)
+        self._codes = _to_device(codes, np.int8, self.device)
+        self._scales = _to_device(scales, np.float32, self.device)
+        self.kb_bytes = codes.nbytes + scales.nbytes
+        self.calls = 0
+        self._init_shapes(codes.shape[0])
+
+    def gathered_scratch_bytes(self, B: int, C: int, k: int = GT.MAX_K) -> int:
+        """What one ``search_gathered`` call's kernel wrapper allocates at
+        this k (default: the largest the kernel takes)."""
+        return _kernel_scratch_bytes(self.device, B, C, k, self._codes.shape[1] * 4)
+
+    def pregathered_scratch_bytes(self, B: int, C: int) -> int:
+        return B * C * (self._codes.shape[1] + 4)
+
+    def search(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        q = _to_device(queries, np.float32, self.device)
+        scores, ids = quant_dense_topk(q, self._codes, self._scales,
+                                       min(k, self._codes.shape[0]))
+        self.calls += 1
+        return ids.cpu().numpy().astype(np.int64), scores.cpu().numpy()
+
+    def search_gathered(self, queries: np.ndarray, cand: np.ndarray,
+                        k: int) -> Tuple[np.ndarray, np.ndarray]:
+        q = _to_device(queries, np.float32, self.device)
+        c = _to_device(cand, np.int32, self.device)
+        scores, ids = GT.quant_fused_gathered_topk(q, self._codes, self._scales, c,
+                                                   min(k, cand.shape[1]))
+        self.calls += 1
+        return _sentinels_to_contract(ids.cpu().numpy(), scores.cpu().numpy())
 
 
 def make_backend(name: str, embeddings: np.ndarray, device=None):
-    """Backend factory keyed by CLI name (one of :data:`BACKENDS`)."""
+    """Backend factory keyed by CLI name (one of :data:`BACKENDS`);
+    ``device`` is where the kernel backends keep the KB (default: CUDA)."""
     if name == "numpy":
         return FlatBackend(embeddings)
     if name == "kernel":
         return TorchKernelBackend(embeddings, device=device)
+    if name == "int8":
+        return QuantizedFlatBackend(embeddings)
+    if name == "int8-kernel":
+        return TorchQuantizedKernelBackend(embeddings, device=device)
+    if name in ("sharded", "int8-sharded"):
+        raise KeyError(f"retrieval backend {name!r} is not ported yet "
+                       f"(torch.distributed sharding, ROADMAP.md item 11); "
+                       f"ported: {BACKENDS}")
     raise KeyError(f"unknown retrieval backend {name!r}; known: {BACKENDS}")

@@ -1,14 +1,20 @@
-"""Retrievers (the port's ``repro.retrieval.retrievers``, EDR only).
+"""Retrievers (the port's ``repro.retrieval.retrievers``, EDR and ADR).
 
   * ExactDenseRetriever (EDR) — brute-force inner product over the flat index.
                                 Scoring is delegated to a
                                 :mod:`repro_torch.retrieval.backends` object:
                                 'numpy' (flat BLAS scan) or 'kernel' (the CUDA
                                 dense top-k, KB resident on the device) —
-                                byte-identical under the canonical tie order.
+                                byte-identical under the canonical tie order —
+                                and their int8 siblings 'int8' / 'int8-kernel'
+                                (identical to each other, recall@k >= 0.95).
+  * IVFRetriever        (ADR) — k-means coarse quantizer + nprobe cluster scan.
+                                Centroid scoring stays host-side; the
+                                per-bucket document scan delegates to the
+                                same backends (``search_gathered``).
 
-ADR (``IVFRetriever``) and SR (``BM25Retriever``) are later slices; only the
-``BM25Retriever`` name exists here, for the serving core's sparse/dense check.
+SR (``BM25Retriever``) is a later slice; only its name exists here, for the
+serving core's sparse/dense check.
 
 All retrievers expose:  retrieve(queries, k) -> (ids (B,k) int64, scores (B,k)).
 The wall-clock timing + :class:`RetrieverStats` bookkeeping lives ONCE in
@@ -144,8 +150,9 @@ class ExactDenseRetriever(_TimedRetriever):
     """EDR: exact scan, execution strategy chosen by the backend layer.
 
     ``backend`` is a :mod:`repro_torch.retrieval.backends` name (one of
-    ``BACKENDS``) or an already-built backend object; ``device`` is where the
-    'kernel' backend keeps the KB (default: CUDA)."""
+    ``BACKENDS``) or an already-built backend object (one backend may serve
+    an EDR and an ADR retriever, so the KB sits on the device once);
+    ``device`` is where the kernel backends keep the KB (default: CUDA)."""
 
     name = "EDR"
 
@@ -166,6 +173,127 @@ class ExactDenseRetriever(_TimedRetriever):
         return self.kb.embeddings[np.asarray(ids, np.int64)]
 
 
+class IVFRetriever(_TimedRetriever):
+    """ADR: k-means coarse quantizer (host-side centroid scan) + nprobe bucket
+    scan, the document scoring of which is delegated to the backend layer —
+    the same execution strategies as EDR (int8 quantized included), via
+    :meth:`~repro_torch.retrieval.backends.DenseSearchBackend.search_gathered`
+    over the fixed-shape padded bucket gather. ``backend`` and ``device`` mean
+    exactly what they do on :class:`ExactDenseRetriever`. The k-means, the
+    bucket table and the candidate matrix are the reference's, computed the
+    same way in numpy, so they come out equal to its own."""
+
+    name = "ADR"
+
+    def __init__(self, kb: DenseKB, n_clusters: int = 64, nprobe: int = 4,
+                 iters: int = 8, seed: int = 3, backend="numpy", device=None):
+        self.kb = kb
+        self.nprobe = nprobe
+        self.stats = RetrieverStats("linear_intercept")
+        self.backend: DenseSearchBackend = (
+            backend if not isinstance(backend, str)
+            else make_backend(backend, kb.embeddings, device=device))
+        g = np.random.default_rng(seed)
+        X = kb.embeddings
+        self.centroids = X[g.choice(X.shape[0], n_clusters, replace=False)].copy()
+        for _ in range(iters):                                # Lloyd iterations
+            assign = np.argmax(X @ self.centroids.T, axis=1)
+            for c in range(n_clusters):
+                pts = X[assign == c]
+                if len(pts):
+                    v = pts.mean(0)
+                    self.centroids[c] = v / max(np.linalg.norm(v), 1e-9)
+        assign = np.argmax(X @ self.centroids.T, axis=1)
+        self.buckets = [np.where(assign == c)[0] for c in range(n_clusters)]
+        self._build_pads()
+
+    def _build_pads(self) -> None:
+        """Fixed-shape bucket table for the vectorized probe: row c holds
+        bucket c's doc ids padded with -1 to the longest bucket, so a batch's
+        candidate sets are ONE gather ``_bucket_pad[cs]`` of shape
+        (B, nprobe, Lmax) — no per-query Python concatenation."""
+        L = max(max((len(bk) for bk in self.buckets), default=1), 1)
+        self._bucket_pad = np.full((len(self.buckets), L), -1, np.int64)
+        for c, bk in enumerate(self.buckets):
+            self._bucket_pad[c, :len(bk)] = bk
+        self._bucket_len = np.asarray([len(bk) for bk in self.buckets],
+                                      np.int64)
+
+    def _ensure_exec(self) -> None:
+        """Backfill execution state on instances restored without __init__
+        (an index cached by a benchmark and rebuilt via __new__)."""
+        if not hasattr(self, "_bucket_pad"):
+            self._build_pads()
+        if not hasattr(self, "backend"):
+            self.backend = make_backend("numpy", self.kb.embeddings)
+
+    def _cand_width(self, k: int) -> int:
+        """The fixed candidate width C of the gathered scan: nprobe x Lmax
+        from the index, widened to k so fallback/pad slots fit. (nprobe
+        clamps to the cluster count, as the probe's argsort slice does
+        implicitly.)"""
+        nprobe = min(self.nprobe, len(self.buckets))
+        return max(self._bucket_pad.shape[1] * nprobe,
+                   max(min(k, self.kb.size), 1), k)
+
+    def _cold_shape(self, B: int, k: int) -> bool:
+        self._ensure_exec()
+        return self.backend.cold_shape_gathered(B, self._cand_width(k), k)
+
+    def _gather_candidates(self, queries: np.ndarray,
+                           k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Host-side probe: score centroids, gather the probed buckets' padded
+        id rows into the fixed-shape (B, C) candidate matrix, then normalize
+        each row to the backend contract — ids sorted ascending, -1 pads last
+        (id-sorted columns are what make every backend's positional tie break
+        the canonical id-ascending order). Queries whose probes come up empty
+        fall back to the first ``min(k, kb.size)`` docs. Returns
+        ``(cand, counts)``; counts = real candidates per row."""
+        B = queries.shape[0]
+        cs = np.argsort(-(queries @ self.centroids.T), axis=1)[:, :self.nprobe]
+        cand = self._bucket_pad[cs].reshape(B, -1)        # (B, nprobe*Lmax)
+        counts = self._bucket_len[cs].sum(1)              # real cands per row
+        F = max(min(k, self.kb.size), 1)
+        if cand.shape[1] < max(F, k):                     # room for fallback/pad
+            cand = np.pad(cand, ((0, 0), (0, max(F, k) - cand.shape[1])),
+                          constant_values=-1)
+        empty = counts == 0
+        if empty.any():                                   # fallback candidates
+            cand[empty] = -1
+            cand[empty, :F] = np.arange(F)
+            counts = np.where(empty, F, counts)
+        big = np.iinfo(np.int64).max
+        cand = np.sort(np.where(cand < 0, big, cand), axis=1)
+        cand[cand == big] = -1
+        return cand, counts
+
+    def _search(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Vectorized nprobe scan, document scoring on the backend: the padded
+        fixed-shape candidate gather goes down to ``backend.search_gathered``,
+        which returns the canonical (score desc, id asc) top-k over each
+        row's real candidates with (-1, -inf) pads.
+
+        Semantics beyond the backend contract live here: queries whose probes
+        come up empty fall back to the first ``min(k, kb.size)`` docs, and
+        rows with fewer than k candidates pad by repeating their last real
+        (id, score). Because the padded shape is fixed by the index
+        (nprobe x Lmax), a batched call is byte-identical to the same queries
+        issued one at a time."""
+        self._ensure_exec()
+        cand, counts = self._gather_candidates(queries, k)
+        ids, sc = self.backend.search_gathered(queries, cand, k)
+        k2 = ids.shape[1]                                 # min(k, C) == k here
+        kk = np.minimum(counts, k2)                       # real hits per row
+        fill = np.arange(k2)[None, :] >= kk[:, None]      # pad: repeat last
+        last = np.maximum(kk - 1, 0)[:, None]
+        ids = np.where(fill, np.take_along_axis(ids, last, axis=1), ids)
+        sc = np.where(fill, np.take_along_axis(sc, last, axis=1), sc)
+        return ids.astype(np.int64), sc.astype(np.float32)
+
+    def keys_of(self, ids) -> np.ndarray:
+        return self.kb.embeddings[np.asarray(ids, np.int64)]
+
+
 class BM25Retriever(_TimedRetriever):
     """SR over a SparseKB — ported with the SR slice (ROADMAP.md). The class
     exists so the serving core can tell sparse retrievers from dense ones."""
@@ -174,4 +302,4 @@ class BM25Retriever(_TimedRetriever):
 
     def __init__(self, kb):
         raise NotImplementedError(
-            "BM25Retriever (SR) is not ported yet; the port serves EDR")
+            "BM25Retriever (SR) is not ported yet; the port serves EDR and ADR")

@@ -6,9 +6,10 @@ dependencies (there the JAX conftest cannot load):
 
     PYTHONPATH=src python3 -m pytest -q --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-Tolerances: byte equality for the dense top-k on grid-quantized KBs (every
-dot product exact in fp32); 2e-5 absolute for attention (fp32 online softmax
-in the kernel against one-shot softmax in the plain version).
+Tolerances: byte equality for the dense top-k, the gathered scans and the
+int8 scan on grid-quantized KBs (every dot product exact in fp32, the int8
+scale one rounding); 2e-5 absolute for attention (fp32 online softmax in the
+kernel against one-shot softmax in the plain version).
 """
 import numpy as np
 import pytest
@@ -16,8 +17,12 @@ import torch
 
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import dense_topk as DT
+from repro_torch.kernels import gathered_topk as GT
 from repro_torch.kernels import prefill_attention as PA
-from repro_torch.retrieval.backends import FlatBackend, TorchKernelBackend
+from repro_torch.kernels import quant_topk as QT
+from repro_torch.retrieval.backends import (FlatBackend, QuantizedFlatBackend,
+                                            TorchKernelBackend,
+                                            TorchQuantizedKernelBackend, quantize_kb)
 
 pytestmark = pytest.mark.gpu
 
@@ -93,6 +98,91 @@ def test_kernel_backend_on_cuda_matches_numpy(cuda):
         assert np.array_equal(fi, ki) and np.array_equal(fs, ks)
 
 
+def _ragged_cand(rng, B, C, N):
+    """Id-sorted rows of ragged width, -1 pads; row 0 repeats an id, row 2 is
+    all pad."""
+    cand = np.full((B, C), -1, np.int32)
+    for b in range(B):
+        if b == 2:
+            continue
+        w = int(rng.integers(1, min(C, N)))
+        cand[b, :w] = np.sort(rng.choice(N, size=w, replace=False))
+    cand[0, 1] = cand[0, 0]
+    return cand
+
+
+@pytest.mark.parametrize("d", [64, 768])
+@pytest.mark.parametrize("k", [1, 20, 256])
+def test_gathered_kernels_match_plain(cuda, d, k):
+    """B4, B5, B7, B8 against their plain versions byte for byte on a
+    tie-heavy grid KB; B4 == B5, B7 == B8; B=1 rows == B=12 rows."""
+    rng = np.random.default_rng(d + k)
+    N, C = 3001, 1300
+    emb = _tie_heavy(rng, N, d)
+    codes, scales = (torch.from_numpy(a).to(cuda) for a in quantize_kb(emb))
+    kb = torch.from_numpy(emb).to(cuda)
+    q = torch.from_numpy(_grid(rng, 12, d)).to(cuda)
+    cand = torch.from_numpy(_ragged_cand(rng, 12, C, N)).to(cuda)
+    safe = cand.clamp(min=0).long()
+    args = {"fused_gathered_topk": (q, kb, cand),
+            "gathered_topk": (q, kb[safe].contiguous(), cand),
+            "quant_fused_gathered_topk": (q, codes, scales, cand),
+            "quant_gathered_topk": (q, codes[safe].contiguous(),
+                                    scales[safe].contiguous(), cand)}
+    out = {}
+    for name, a in args.items():
+        before = GT.launches[name]
+        out[name] = getattr(GT, name)(*a, k)
+        assert GT.launches[name] == before + 1
+        plain = getattr(GT, f"{name}_plain")(*a, k)
+        assert torch.equal(out[name][0], plain[0]) and torch.equal(out[name][1], plain[1]), name
+        # query 0 alone: q and cand (and a slab) cut to its row
+        first = tuple(t[:1].contiguous() if t.shape[0] == 12 else t for t in a)
+        one = getattr(GT, name)(*first, k)
+        assert torch.equal(one[0][0], out[name][0][0]) and torch.equal(one[1][0], out[name][1][0])
+    for x, y in (("fused_gathered_topk", "gathered_topk"),
+                 ("quant_fused_gathered_topk", "quant_gathered_topk")):
+        assert torch.equal(out[x][0], out[y][0]) and torch.equal(out[x][1], out[y][1])
+    assert (out["fused_gathered_topk"][1][2] == -1).all()
+    # ids past the KB's rows are not read: the kernel and the plain version
+    # both score them NEG and keep their ids
+    cand[1, :3] = torch.tensor([N, N + 5, 10**9], dtype=torch.int32, device=cuda)
+    for name in ("fused_gathered_topk", "quant_fused_gathered_topk"):
+        a = args[name]
+        got, want = getattr(GT, name)(*a, k), getattr(GT, f"{name}_plain")(*a, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+
+
+@pytest.mark.parametrize("B,k", [(1, 1), (12, 20), (64, 256)])
+def test_quant_topk_kernel_matches_plain(cuda, B, k):
+    rng = np.random.default_rng(B + k + 1)
+    codes, scales = (torch.from_numpy(a).to(cuda)
+                     for a in quantize_kb(_tie_heavy(rng, 3001, 64)))
+    q = torch.from_numpy(_grid(rng, B, 64)).to(cuda)
+    before = QT.launches
+    s_k, i_k = QT.quant_dense_topk(q, codes, scales, k)
+    s_p, i_p = QT.quant_dense_topk_plain(q, codes, scales, k)
+    assert QT.launches == before + 1
+    assert torch.equal(s_k, s_p) and torch.equal(i_k, i_p)
+
+
+def test_gathered_and_int8_backends_on_cuda_match_numpy(cuda):
+    rng = np.random.default_rng(10)
+    emb = _tie_heavy(rng, 2100, 32)
+    flat, kern = FlatBackend(emb), TorchKernelBackend(emb, device=cuda)
+    qflat, qkern = QuantizedFlatBackend(emb), TorchQuantizedKernelBackend(emb, device=cuda)
+    assert qkern._codes.is_cuda
+    for B, k in ((1, 1), (12, 20), (5, 256)):
+        qs = _grid(rng, B, 32)
+        cand = _ragged_cand(rng, max(B, 3), 700, 2100)[:B].astype(np.int64)
+        for want, got in ((flat.search_gathered(qs, cand, k), kern.search_gathered(qs, cand, k)),
+                          (qflat.search(qs, k), qkern.search(qs, k)),
+                          (qflat.search_gathered(qs, cand, k),
+                           qkern.search_gathered(qs, cand, k))):
+            assert np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1])
+    assert kern.gathered_scratch_bytes(12, 700, 20) == 8 * GT.scratch_keys(12, 700, 20)
+
+
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     kb = torch.zeros((300, 6), device=cuda)
     with pytest.raises(ValueError, match="d % 4"):
@@ -107,3 +197,15 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     kc = torch.zeros((1, 8, 2, 32), device=cuda)
     with pytest.raises(ValueError, match="hd in"):
         DA.decode_attention(q, kc, kc, torch.ones(1, dtype=torch.int32, device=cuda))
+    cand = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="d % 16"):
+        GT.quant_fused_gathered_topk(torch.zeros((1, 8), device=cuda),
+                                     torch.zeros((30, 8), dtype=torch.int8, device=cuda),
+                                     torch.ones(30, device=cuda), cand, 1)
+    with pytest.raises(TypeError, match="int32"):
+        GT.fused_gathered_topk(torch.zeros((1, 8), device=cuda),
+                               torch.zeros((30, 8), device=cuda), cand.long(), 1)
+    with pytest.raises(ValueError, match="k <= 256"):
+        QT.quant_dense_topk(torch.zeros((1, 16), device=cuda),
+                            torch.zeros((300, 16), dtype=torch.int8, device=cuda),
+                            torch.ones(300, device=cuda), 257)

@@ -4,9 +4,12 @@ On the CPU each wrapper runs its plain PyTorch version; here those plain
 versions meet the reference's Pallas kernels run in interpret mode (as
 tests/test_kernels.py runs them). Inputs come from numpy with a seed and go
 to both packages. Tolerances:
-  * B1 dense top-k: byte equality of ids and scores on grid-quantized KBs
-    (entries in multiples of 1/2, so every dot product is exact in fp32 in any
-    summation order, and only the canonical tie order can tell results apart);
+  * B1 dense top-k, B4-B8 gathered and int8 scans: byte equality of ids and
+    scores on grid-quantized KBs (entries in multiples of 1/2, so every dot
+    product is exact in fp32 in any summation order, the int8 scale multiply
+    is one rounding, and only the tie order can tell results apart); on
+    Gaussian inputs atol = rtol = 1e-4 with equal ids, the reference suite's
+    own tolerance for its kernels against their oracles;
   * B2/B3 attention: allclose at 1e-5 — fp32 online softmax (Pallas) against
     one-shot softmax (plain), a few ulp apart.
 The kernel-versus-plain tests need a CUDA device; they live in
@@ -18,11 +21,19 @@ import pytest
 import torch
 
 from repro.kernels.decode_attention import decode_attention_pallas
-from repro.kernels.dense_topk import dense_topk_pallas
+from repro.kernels.dense_topk import (dense_topk_pallas,
+                                      fused_gathered_topk_pallas,
+                                      gathered_topk_pallas,
+                                      quant_fused_gathered_topk_pallas,
+                                      quant_gathered_topk_pallas,
+                                      quant_topk_pallas)
 from repro.kernels.prefill_attention import prefill_attention_pallas
+from repro.retrieval.backends import quantize_kb
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import dense_topk as DT
+from repro_torch.kernels import gathered_topk as GT
 from repro_torch.kernels import prefill_attention as PA
+from repro_torch.kernels import quant_topk as QT
 
 
 def _grid(rng, n, d):
@@ -72,6 +83,163 @@ def test_dense_topk_rejects_bad_k():
         DT.dense_topk(torch.zeros((1, 4)), kb, 11)
     with pytest.raises(ValueError):
         DT.dense_topk(torch.zeros((1, 4)), kb, 0)
+
+
+# ---------------------------------------------------------------------------------
+# B4, B5, B7, B8 gathered scans and B6 int8 scan
+# ---------------------------------------------------------------------------------
+def _ragged_cand(rng, B, C, N, dup_row=None, empty_row=None):
+    """Id-sorted candidate rows with -1 tail padding (as the IVF probe hands
+    them in); optionally one row with a duplicated id and one all-pad row."""
+    cand = np.full((B, C), -1, np.int32)
+    for b in range(B):
+        if b == empty_row:
+            continue
+        w = int(rng.integers(1, min(C, N)))
+        row = np.sort(rng.choice(N, size=w, replace=False))
+        if b == dup_row and w >= 2:
+            row[1] = row[0]
+        cand[b, :w] = row
+    return cand
+
+
+def _gathered_pair(kind, q, kb, cand, k):
+    """One gathered scan through the Pallas kernel (interpret mode, small
+    tiles so C crosses several) and through the port's wrapper (its plain
+    version, the tensors being on the CPU)."""
+    safe = np.maximum(cand, 0)
+    jq, jc = jnp.asarray(q), jnp.asarray(cand)
+    tq, tc = torch.from_numpy(q), torch.from_numpy(cand)
+    if kind in ("B7", "B8"):
+        codes, scales = quantize_kb(kb)
+        if kind == "B7":
+            ref = quant_fused_gathered_topk_pallas(jq, jnp.asarray(codes), jnp.asarray(scales),
+                                                   jc, k, block_c=128, interpret=True)
+            out = GT.quant_fused_gathered_topk(tq, torch.from_numpy(codes),
+                                               torch.from_numpy(scales), tc, k)
+        else:
+            ref = quant_gathered_topk_pallas(jq, jnp.asarray(codes[safe]),
+                                             jnp.asarray(scales[safe]), jc, k,
+                                             block_c=128, interpret=True)
+            out = GT.quant_gathered_topk(tq, torch.from_numpy(codes[safe]),
+                                         torch.from_numpy(scales[safe]), tc, k)
+    elif kind == "B4":
+        ref = fused_gathered_topk_pallas(jq, jnp.asarray(kb), jc, k, block_c=128,
+                                         interpret=True)
+        out = GT.fused_gathered_topk(tq, torch.from_numpy(kb), tc, k)
+    else:
+        ref = gathered_topk_pallas(jq, jnp.asarray(kb[safe]), jc, k, block_c=128,
+                                   interpret=True)
+        out = GT.gathered_topk(tq, torch.from_numpy(kb[safe]), tc, k)
+    return (np.asarray(ref[0]), np.asarray(ref[1])), (out[0].numpy(), out[1].numpy())
+
+
+@pytest.mark.parametrize("kind", ["B4", "B5", "B7", "B8"])
+@pytest.mark.parametrize("B,N,C,d,k,dup,empty", [
+    (3, 500, 130, 32, 5, 0, 2),       # C a multiple of no tile, duplicate id, all-pad row
+    (3, 300, 384, 16, 8, None, None), # ids cross tile boundaries, 3 tiles
+    (1, 128, 16, 8, 16, None, None),  # k > real candidates -> pad sentinels
+])
+def test_gathered_plain_matches_pallas_bytes(kind, B, N, C, d, k, dup, empty):
+    """Tie-heavy grid KBs: ids AND scores byte-identical to the Pallas kernel,
+    column tie order and (NEG, -1) pads included."""
+    rng = np.random.default_rng(N + C + d)
+    kb = _tie_heavy(rng, N, d)
+    q = _grid(rng, B, d)
+    cand = _ragged_cand(rng, B, C, N, dup_row=dup, empty_row=empty)
+    (s_r, i_r), (s_p, i_p) = _gathered_pair(kind, q, kb, cand, k)
+    assert i_p.dtype == np.int32 and s_p.dtype == np.float32
+    assert np.array_equal(i_r, i_p), f"{kind} ids"
+    assert np.array_equal(s_r, s_p), f"{kind} scores"
+    if empty is not None:
+        assert np.all(i_p[empty] == -1) and np.all(s_p[empty] == np.float32(DT.NEG))
+
+
+@pytest.mark.parametrize("kind", ["B4", "B5", "B7", "B8"])
+@pytest.mark.parametrize("B,N,C,d,k", [(2, 500, 130, 32, 5), (3, 300, 270, 16, 6)])
+def test_gathered_plain_matches_pallas_gaussian(kind, B, N, C, d, k):
+    rng = np.random.default_rng(B * N + C)
+    kb = rng.standard_normal((N, d)).astype(np.float32)
+    q = rng.standard_normal((B, d)).astype(np.float32)
+    cand = _ragged_cand(rng, B, C, N, dup_row=0)
+    (s_r, i_r), (s_p, i_p) = _gathered_pair(kind, q, kb, cand, k)
+    np.testing.assert_allclose(s_p, s_r, atol=1e-4, rtol=1e-4)
+    assert np.array_equal(i_r, i_p)
+
+
+def test_gathered_fused_equals_pregathered_and_batch_invariant():
+    """B4 == B5 and B7 == B8 byte for byte; a query's row is the same alone
+    (B=1) and in a batch of 12; k > C pads with (NEG, -1)."""
+    rng = np.random.default_rng(11)
+    N, C, d = 400, 300, 32
+    kb = _tie_heavy(rng, N, d)
+    codes, scales = (torch.from_numpy(a) for a in quantize_kb(kb))
+    kb = torch.from_numpy(kb)
+    q = torch.from_numpy(_grid(rng, 12, d))
+    cand = torch.from_numpy(_ragged_cand(rng, 12, C, N, dup_row=1, empty_row=4))
+    safe = cand.clamp(min=0).long()
+    for k in (1, 20, 256):
+        b4 = GT.fused_gathered_topk(q, kb, cand, k)
+        b5 = GT.gathered_topk(q, kb[safe], cand, k)
+        b7 = GT.quant_fused_gathered_topk(q, codes, scales, cand, k)
+        b8 = GT.quant_gathered_topk(q, codes[safe], scales[safe], cand, k)
+        for x, y in ((b4, b5), (b7, b8)):
+            assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+        for b in (0, 4, 11):
+            one = GT.fused_gathered_topk(q[b:b + 1], kb, cand[b:b + 1], k)
+            assert torch.equal(one[0][0], b4[0][b]) and torch.equal(one[1][0], b4[1][b])
+        if k > C:
+            assert (b4[1][:, C:] == -1).all() and (b7[0][:, C:] == DT.NEG).all()
+
+
+@pytest.mark.parametrize("B,N,d,k,ties", [
+    (1, 257, 32, 1, False), (4, 1000, 64, 8, True), (3, 130, 16, 4, False),
+    (2, 700, 16, 6, True)])
+def test_quant_topk_plain_matches_pallas(B, N, d, k, ties):
+    """B6 on grid KBs (byte-identical) and on Gaussian KBs (1e-4, equal ids),
+    several KB tiles so ids cross tile boundaries."""
+    rng = np.random.default_rng(B * N + k)
+    for emb, exact in ((_tie_heavy(rng, N, d) if ties else _grid(rng, N, d), True),
+                       (rng.standard_normal((N, d)).astype(np.float32), False)):
+        q = _grid(rng, B, d) if exact else rng.standard_normal((B, d)).astype(np.float32)
+        codes, scales = quantize_kb(emb)
+        s_r, i_r = quant_topk_pallas(jnp.asarray(q), jnp.asarray(codes),
+                                     jnp.asarray(scales), k, block_n=256, interpret=True)
+        s_p, i_p = QT.quant_dense_topk(torch.from_numpy(q), torch.from_numpy(codes),
+                                       torch.from_numpy(scales), k)
+        assert i_p.dtype == torch.int32 and np.array_equal(np.asarray(i_r), i_p.numpy())
+        if exact:
+            assert np.array_equal(np.asarray(s_r), s_p.numpy())
+        else:
+            np.testing.assert_allclose(s_p.numpy(), np.asarray(s_r), atol=1e-4, rtol=1e-4)
+
+
+def test_fused_scans_read_no_row_past_n():
+    """An id at or past the KB's N rows is not read: it scores NEG, as a pad
+    does, and keeps its id; the real candidates rank as before."""
+    rng = np.random.default_rng(6)
+    kb = torch.from_numpy(_grid(rng, 50, 16))
+    codes, scales = (torch.from_numpy(a) for a in quantize_kb(kb.numpy()))
+    q = torch.from_numpy(_grid(rng, 1, 16))
+    cand = torch.tensor([[3, 7, 50, 99, -1]], dtype=torch.int32)
+    for s, i in (GT.fused_gathered_topk(q, kb, cand, 5),
+                 GT.quant_fused_gathered_topk(q, codes, scales, cand, 5)):
+        assert sorted(i[0, :2].tolist()) == [3, 7] and i[0, 2:].tolist() == [50, 99, -1]
+        assert (s[0, 2:] == DT.NEG).all()
+
+
+def test_gathered_and_quant_wrappers_reject_bad_inputs():
+    q, cand = torch.zeros((2, 8)), torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="k=0"):
+        GT.fused_gathered_topk(q, torch.zeros((10, 8)), cand, 0)
+    with pytest.raises(ValueError, match="shapes"):
+        GT.fused_gathered_topk(q, torch.zeros((10, 6)), cand, 1)
+    with pytest.raises(ValueError, match="emb"):
+        GT.gathered_topk(q, torch.zeros((2, 5, 8)), cand, 1)
+    with pytest.raises(ValueError, match="several devices"):
+        GT.fused_gathered_topk(q, torch.zeros((10, 8), device="meta"), cand, 1)
+    with pytest.raises(ValueError, match="outside"):
+        QT.quant_dense_topk(q, torch.zeros((3, 8), dtype=torch.int8), torch.ones(3), 4)
 
 
 # ---------------------------------------------------------------------------------

@@ -2,12 +2,14 @@
 
 On the same converted parameters, KB and prompts, the port's RaLMSeq, its
 RaLMSpec under every variant, and its FleetServer (3 slots, sync and async) —
-all over the ``kernel`` EDR backend, which runs the dense top-k's plain
-version on the CPU — must give exactly the tokens of the reference RaLMSeq
-(JAX, numpy backend), with one merged KB call per fleet round. Also here: the
-CLI's own output check, and the guards that keep the port honest — it loads no
-JAX and nothing of the reference package, and it never drops to the CPU by
-itself.
+all over the ``kernel`` backend, which runs the kernels' plain versions on the
+CPU — must give exactly the tokens of the reference RaLMSeq (JAX, numpy
+backend), with one merged KB call per fleet round: for EDR, and for ADR,
+whose IVF index must equal the reference's. Over the inexact ``int8-kernel``
+backend the fleet must give the tokens of RaLMSeq through the same backend
+object. Also here: the CLI's own output check, and the guards that keep the
+port honest — it loads no JAX and nothing of the reference package, and it
+never drops to the CPU by itself.
 """
 import dataclasses
 import os
@@ -26,17 +28,21 @@ from repro.launch.serve import make_server as ref_make_server
 from repro_torch.configs import RaLMConfig
 from repro_torch.launch.serve import build_stack, make_server, variant_config
 from repro_torch.models.convert import params_from_reference
+from repro_torch.retrieval.backends import TorchQuantizedKernelBackend
+from repro_torch.retrieval.retrievers import IVFRetriever
 from repro_torch.training.data import make_queries
 
 ROOT = Path(__file__).resolve().parents[1]
 N_DOCS, MAX_NEW = 1500, 16
 
 
-@pytest.fixture(scope="module")
-def stacks():
-    ref = ref_build_stack("edr", n_docs=N_DOCS,
+def _build_pair(retriever):
+    """The reference stack (numpy backend) and the port's (kernel backend,
+    CPU) on the reference's parameters, with the reference RaLMSeq's tokens
+    for three prompts."""
+    ref = ref_build_stack(retriever, n_docs=N_DOCS,
                           rcfg=RefRaLMConfig(max_new_tokens=MAX_NEW))
-    port = build_stack("edr", n_docs=N_DOCS, backend="kernel", device="cpu",
+    port = build_stack(retriever, n_docs=N_DOCS, backend="kernel", device="cpu",
                        rcfg=RaLMConfig(max_new_tokens=MAX_NEW))
     port.params = params_from_reference(port.cfg,
                                         jax.tree.map(np.asarray, ref.params))
@@ -46,7 +52,17 @@ def stacks():
     seq = ref_make_server(ref, scheduler="seq")
     want = [seq.serve(p).tokens for p in prompts]
     assert all(len(t) == MAX_NEW for t in want)
-    return port, prompts, want
+    return port, prompts, want, ref
+
+
+@pytest.fixture(scope="module")
+def stacks():
+    return _build_pair("edr")[:3]
+
+
+@pytest.fixture(scope="module")
+def adr_stacks():
+    return _build_pair("adr")
 
 
 def _with(stack, variant):
@@ -80,6 +96,58 @@ def test_port_fleet_matches_reference_one_call_per_round(stacks, async_fleet):
     assert fr.kb_calls == fr.rounds + 1            # seed call + one per round
     assert backend.calls - c0 == fr.kb_calls
     assert fr.kb_errors == 0 and fr.degraded_rounds == 0
+
+
+def test_port_ivf_index_equals_reference(adr_stacks):
+    """Same k-means (centroids), same bucket table, same candidate matrix."""
+    port, prompts, _, ref = adr_stacks
+    ours, theirs = port.retriever, ref.retriever
+    assert isinstance(ours, IVFRetriever)
+    assert np.array_equal(ours.centroids, theirs.centroids)
+    assert np.array_equal(ours._bucket_pad, theirs._bucket_pad)
+    qs = port.encoder.encode_batch(prompts)
+    for k in (1, 20):
+        c_ours, n_ours = ours._gather_candidates(qs, k)
+        c_ref, n_ref = theirs._gather_candidates(qs, k)
+        assert np.array_equal(c_ours, c_ref) and np.array_equal(n_ours, n_ref)
+        assert np.array_equal(ours.retrieve(qs, k)[0], theirs.retrieve(qs, k)[0])
+
+
+def test_port_adr_ralmseq_matches_reference(adr_stacks):
+    port, prompts, want, _ = adr_stacks
+    seq = make_server(port, scheduler="seq")
+    assert [seq.serve(p).tokens for p in prompts] == want
+
+
+@pytest.mark.parametrize("async_fleet", [False, True])
+def test_port_adr_fleet_matches_reference_one_call_per_round(adr_stacks, async_fleet):
+    port, prompts, want, _ = adr_stacks
+    st = _with(port, "psa")
+    backend = st.retriever.backend
+    with make_server(st, scheduler="fixed", n_slots=3,
+                     async_fleet=async_fleet) as fleet:
+        c0 = backend.calls
+        fr = fleet.serve(prompts)
+    assert [r.tokens for r in fr.results] == want
+    assert fr.kb_calls == fr.rounds + 1
+    assert backend.calls - c0 == fr.kb_calls
+
+
+@pytest.mark.parametrize("retriever", ["edr", "adr"])
+def test_port_int8_kernel_fleet_matches_ralmseq(stacks, adr_stacks, retriever):
+    """The inexact backend's contract: speculation + batched verification
+    through one int8-kernel backend object give RaLMSeq's tokens through it."""
+    port, prompts, _ = stacks if retriever == "edr" else adr_stacks[:3]
+    qb = TorchQuantizedKernelBackend(port.retriever.kb.embeddings, device="cpu")
+    retr = (type(port.retriever)(port.retriever.kb, backend=qb))
+    st = dataclasses.replace(_with(port, "psa"), retriever=retr, backend="int8-kernel")
+    seq = make_server(st, scheduler="seq")
+    base = [seq.serve(p).tokens for p in prompts]
+    with make_server(st, scheduler="fixed", n_slots=3) as fleet:
+        c0 = qb.calls
+        fr = fleet.serve(prompts)
+    assert [r.tokens for r in fr.results] == base
+    assert fr.kb_calls == fr.rounds + 1 and qb.calls - c0 == fr.kb_calls
 
 
 def _env():
@@ -126,11 +194,16 @@ def test_no_silent_cpu_fallback(monkeypatch):
 
 
 def test_capability_table_names_what_is_supported():
-    for kw, msg in ((dict(retriever="adr"), "supported: edr"),
+    for kw, msg in ((dict(retriever="sr"), "supported: edr, adr"),
                     (dict(retriever="edr", backend="sharded"),
-                     "supported: numpy, kernel"),
+                     "supported: numpy, kernel, int8, int8-kernel"),
+                    (dict(retriever="adr", backend="int8-sharded"),
+                     "supported: numpy, kernel, int8, int8-kernel"),
                     (dict(retriever="edr", workload="knnlm"),
                      "supported: ralm")):
         retriever = kw.pop("retriever")
         with pytest.raises(ValueError, match=msg):
             build_stack(retriever, n_docs=10, device="cpu", **kw)
+    st = build_stack("adr", n_docs=200, backend="int8-kernel", device="cpu")
+    assert isinstance(st.retriever, IVFRetriever)
+    assert st.retriever.backend.name == "int8-kernel"
