@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --src DIR    # phases 1-3 only, for the src/ tree DIR
 
 1. device: the card's name, its power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the four CUDA sources from ``src/repro_torch/kernels/csrc``
@@ -9,9 +10,15 @@
 3. kernels: each of the eight kernels (B1-B8) against its plain PyTorch
    version on the card, at the main paths' shapes (the gathered scans over
    the candidate matrix of the ADR index from real queries, B6 over the int8
-   codes of the serving KB) and on tie-heavy grid KBs, timed with CUDA events
-   (median of repeated windows), beside its bound and one library call as a
-   yardstick;
+   codes of the serving KB) and on tie-heavy grid KBs; B1's rows at B=1 and
+   B=12 against its B=64 rows on the serving KB, B3 at its tile edges. Each
+   kernel and one library call as its yardstick get two times: the device
+   time (20 calls captured in a CUDA graph, the replay timed with CUDA
+   events) and the per-call time (CUDA events around 5 back-to-back calls,
+   host dispatch included), beside the bound. ``--src DIR`` runs phases 1-3
+   with the kernels of another tree (e.g. an unpacked parent commit) and
+   stops, so that two trees are checked and timed by the same code at the
+   same shapes on one card;
 4. serving: full-width ralm-gpt2-medium (random weights from a seed) over a
    500k x 768 KB: EDR through ``build_stack(..., backend="kernel")``, then ADR
    on the same model and KB (one kernel backend holds the fp32 KB for both),
@@ -28,6 +35,7 @@ exits with code 2 before printing any result.
 """
 from __future__ import annotations
 
+import argparse
 import copy
 import dataclasses
 import json
@@ -60,8 +68,9 @@ def bound_ms(nbytes: float, flops: float):
 
 
 def cuda_ms(fn, windows: int = 11, inner: int = 5, warmup: int = 3) -> float:
-    """Median over ``windows`` of the mean time of ``inner`` back-to-back
-    calls, from CUDA events."""
+    """Per-call time: median over ``windows`` of the mean time of ``inner``
+    back-to-back calls, from CUDA events. Where the host takes longer to
+    issue a call than the device to run it, this is host time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -75,6 +84,55 @@ def cuda_ms(fn, windows: int = 11, inner: int = 5, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def device_ms(fn, launches: int = 20, reps: int = 7) -> float:
+    """Device time per call: ``launches`` calls captured in one CUDA graph,
+    the graph replayed ``reps`` times between CUDA events, the median replay
+    divided by ``launches``. Host dispatch is paid once, at capture, so this
+    is the kernels' own time plus the gaps between them on the device. No
+    profiler is involved. The wrappers' launch counts are restored after:
+    capture and replay do not launch through the wrappers."""
+    saved = read_counts()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):            # warm up (cuBLAS workspaces) off the capture
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: an older tree (--src) may make runtime calls inside a launch
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    del graph
+    set_counts(saved)
+    return statistics.median(times)
+
+
+def timed(kernel, library) -> dict:
+    """A kernel wrapper's and its library call's device and per-call times."""
+    return dict(device_ms=device_ms(kernel), call_ms=cuda_ms(kernel),
+                library_device_ms=None if library is None else device_ms(library),
+                library_call_ms=None if library is None else cuda_ms(library))
+
+
+def fmt_times(t: dict, lib_name: str) -> str:
+    lib = ("n/a" if t["library_device_ms"] is None else
+           f"{t['library_device_ms']:.4f} ms device, {t['library_call_ms']:.4f} ms per call")
+    return (f"kernel {t['device_ms']:.4f} ms device, {t['call_ms']:.4f} ms per call  "
+            f"{lib_name} {lib}")
 
 
 def unit_rows(gen, n, d, dev):
@@ -117,24 +175,31 @@ def check_dense_topk(dev, N: int, d: int, report: dict) -> None:
     from repro_torch.retrieval.backends import FlatBackend, TorchKernelBackend
     gen = torch.Generator(device=dev).manual_seed(1)
     kb = unit_rows(gen, N, d, dev)
-    for B in (1, 12, 64):
-        q = unit_rows(gen, B, d, dev)
-        for k in (1, 20, 256):
-            s_k, i_k = K.dense_topk(q, kb, k)
+    q64 = unit_rows(gen, 64, d, dev)
+    for k in (1, 20, 256):
+        rows = {}
+        for B in (1, 12, 64):
+            q = q64[:B]
+            s_k, i_k = rows[B] = K.dense_topk(q, kb, k)
             s_p, i_p = K.dense_topk_plain(q, kb, k + 1)
             err, gap = compare_topk(f"B1 B={B} k={k}", s_k, i_k, s_p, i_p, k)
-            ms = cuda_ms(lambda: K.dense_topk(q, kb, k))
+            t = timed(lambda: K.dense_topk(q, kb, k), lambda: torch.topk(q @ kb.T, k))
             plain = cuda_ms(lambda: K.dense_topk_plain(q, kb, k))
-            lib = cuda_ms(lambda: torch.topk(q @ kb.T, k))
             bms, by = bound_ms(4.0 * (N * d + B * d + 2 * B * k), 2.0 * B * N * d)
-            print(f"B1 dense_topk N={N} d={d} B={B:3d} k={k:3d}: kernel {ms:.4f} ms  "
-                  f"plain {plain:.4f} ms  torch.topk(q@kb.T) {lib:.4f} ms  "
+            print(f"B1 dense_topk N={N} d={d} B={B:3d} k={k:3d}: "
+                  f"{fmt_times(t, 'torch.topk(q@kb.T)')}  plain {plain:.4f} ms  "
                   f"bound {bms:.4f} ms ({by})  max|dscore| {err:.2e}  "
                   f"rows with a clear k-th gap {int(gap.sum())}/{B}")
             if (B, k) == (12, 20):        # the fleet's merged psa call
-                report["dense_topk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                            bound_ms=bms, bound_by=by, library_ms=lib,
-                                            shape=f"B={B} N={N} d={d} k={k}")
+                report["dense_topk"] = dict(max_abs_err=err, plain_ms=plain, bound_ms=bms,
+                                            bound_by=by, shape=f"B={B} N={N} d={d} k={k}", **t)
+        # a query's row does not depend on the batch it comes in
+        s64, i64 = rows[64]
+        for B in (1, 12):
+            check(torch.equal(rows[B][0], s64[:B]) and torch.equal(rows[B][1], i64[:B]),
+                  f"B1 unit KB k={k}: B={B} rows != B=64 rows")
+    print(f"B1 unit KB N={N} d={d}, k in {{1, 20, 256}}: B=1 and B=12 rows == B=64 rows "
+          f"byte for byte")
     # tie-heavy grid KB, N a multiple of no tile: byte-identical, batch-invariant
     rng = np.random.default_rng(3)
     base = grid_rows(rng, 375, 64, dev)
@@ -171,24 +236,23 @@ def check_decode_attention(dev, report: dict) -> None:
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         check(err <= 2e-5, f"B2 H={H} KV={KV}: max abs err {err}")
-        ms = cuda_ms(lambda: K.decode_attention(q, kc, vc, lens))
         plain = cuda_ms(lambda: K.decode_attention_plain(q, kc, vc, lens))
         qs = q[:, :, None]
         ks = kc.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
         vs = vc.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
         mask = (torch.arange(W, device=dev)[None] < lens[:, None])[:, None, None]
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+        t = timed(lambda: K.decode_attention(q, kc, vc, lens),
+                  lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
         n = int(lens.clamp(max=W).sum())
         bms, by = bound_ms(4.0 * (2 * B * H * hd + 2 * n * KV * hd + B),
                            4.0 * n * H * hd)
         print(f"B2 decode_attention B={B} H={H} KV={KV} hd={hd} W={W} "
-              f"cache_len={lens.tolist()}: kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-              f"SDPA {lib:.4f} ms  bound {bms:.5f} ms ({by})  max abs err {err:.2e}")
+              f"cache_len={lens.tolist()}: {fmt_times(t, 'SDPA')}  plain {plain:.4f} ms  "
+              f"bound {bms:.5f} ms ({by})  max abs err {err:.2e}")
         if KV == H:
-            report["decode_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                              bound_ms=bms, bound_by=by, library_ms=lib,
-                                              shape=f"B={B} H=KV={H} hd={hd} W={W} "
-                                                    f"cache_len={lens.tolist()}")
+            report["decode_attention"] = dict(max_abs_err=err, plain_ms=plain, bound_ms=bms,
+                                              bound_by=by, shape=f"B={B} H=KV={H} hd={hd} W={W} "
+                                                                 f"cache_len={lens.tolist()}", **t)
 
 
 def check_prefill_attention(dev, report: dict) -> None:
@@ -208,22 +272,43 @@ def check_prefill_attention(dev, report: dict) -> None:
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         check(err <= 2e-5, f"B3 S={S} H={H} KV={KV} w={window} p={prefix}: {err}")
-        ms = cuda_ms(lambda: K.prefill_attention(q, k, v, **kw))
         plain = cuda_ms(lambda: K.prefill_attention_plain(q, k, v, **kw))
         lib = None
         if window == 0 and prefix == 0 and H == KV:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+        t = timed(lambda: K.prefill_attention(q, k, v, **kw), lib)
         pairs = int(K.allowed_mask(S, S, device=dev, **kw).sum())
         bms, by = bound_ms(4.0 * S * (2 * H + 2 * KV) * hd, 4.0 * pairs * H * hd)
         print(f"B3 prefill_attention S={S} H={H} KV={KV} hd={hd} causal window={window} "
-              f"prefix={prefix}: kernel {ms:.4f} ms  plain {plain:.4f} ms  SDPA "
-              f"{'n/a' if lib is None else f'{lib:.4f} ms'}  bound {bms:.5f} ms ({by})  "
-              f"max abs err {err:.2e}")
+              f"prefix={prefix}: {fmt_times(t, 'SDPA')}  plain {plain:.4f} ms  "
+              f"bound {bms:.5f} ms ({by})  max abs err {err:.2e}")
         if (S, H, KV, window, prefix) == (160, 16, 16, 0, 0):
-            report["prefill_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                               bound_ms=bms, bound_by=by, library_ms=lib,
-                                               shape=f"B=1 S={S} H=KV={H} hd={hd} causal")
+            report["prefill_attention"] = dict(max_abs_err=err, plain_ms=plain, bound_ms=bms,
+                                               bound_by=by, shape=f"B=1 S={S} H=KV={H} "
+                                                                  f"hd={hd} causal", **t)
+    # the q-tile (16 rows) and k/v-tile edges, hd 64 and 128, at B=2: within
+    # 2e-5 of the plain version, and each sequence's rows equal a B=1 call's
+    edges = [(1, 16, 16, 64, True, 0, 0), (15, 16, 4, 64, True, 8, 0),
+             (16, 16, 16, 128, True, 0, 5), (17, 16, 2, 64, True, 0, 0),
+             (33, 8, 8, 128, True, 16, 0), (33, 8, 2, 64, False, 0, 0),
+             (300, 16, 4, 128, True, 0, 37), (513, 16, 16, 64, True, 100, 0),
+             (513, 8, 2, 128, True, 0, 0)]
+    worst = 0.0
+    for S, H, KV, hdx, causal, window, prefix in edges:
+        q = torch.randn((2, S, H, hdx), generator=gen, device=dev)
+        k = torch.randn((2, S, KV, hdx), generator=gen, device=dev)
+        v = torch.randn((2, S, KV, hdx), generator=gen, device=dev)
+        kw = dict(causal=causal, window=window, prefix_len=prefix)
+        out = K.prefill_attention(q, k, v, **kw)
+        err = (out - K.prefill_attention_plain(q, k, v, **kw)).abs().max().item()
+        check(err <= 2e-5, f"B3 edge S={S} H={H} KV={KV} hd={hdx} {kw}: {err}")
+        for b in range(2):
+            one = K.prefill_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw)
+            check(torch.equal(one[0], out[b]), f"B3 edge S={S} hd={hdx}: B=2 row {b} != B=1")
+        worst = max(worst, err)
+    print(f"B3 tile edges S in {{1, 15, 16, 17, 33, 300, 513}} (hd 64 and 128, window, prefix, "
+          f"GQA, bidirectional) at B=2: max abs err {worst:.2e}, B=2 rows == B=1 calls")
 
 
 # the one PyTorch call (or composed call) timed beside each kernel
@@ -292,7 +377,6 @@ def check_gathered(dev, kb, codes, scales, ivf, queries: np.ndarray, report: dic
                 out[name] = getattr(GT, name)(*a, k)
                 plain = getattr(GT, f"{name}_plain")(*a, k + 1)
                 err, gap = compare_topk(f"{name} B={B} k={k}", *out[name], *plain, k)
-                ms = cuda_ms(lambda: getattr(GT, name)(*a, k))
                 plain_ms = cuda_ms(lambda: getattr(GT, f"{name}_plain")(*a, k))
                 quant = name.startswith("quant")
                 safe = a[-1].clamp(min=0).long()
@@ -307,17 +391,16 @@ def check_gathered(dev, kb, codes, scales, ivf, queries: np.ndarray, report: dic
                     else:
                         s = torch.einsum("bd,bcd->bc", q, a[1].float()) * a[2]
                     return torch.topk(s.masked_fill(~real, GT.NEG), k)
-                lib = cuda_ms(library)
+                t = timed(lambda: getattr(GT, name)(*a, k), library)
                 bms, by = bound_ms(need[name] + side, 2.0 * n_real * d + (n_real if quant else 0))
-                print(f"{name} B={B:2d} k={k:3d} C={C}: kernel {ms:.4f} ms  plain "
-                      f"{plain_ms:.4f} ms  {LIBRARY_CALLS[name]} {lib:.4f} ms  bound "
-                      f"{bms:.4f} ms ({by})  max|dscore| {err:.2e}  rows with a clear "
-                      f"k-th gap {int(gap.sum())}/{B}")
+                print(f"{name} B={B:2d} k={k:3d} C={C}: {fmt_times(t, LIBRARY_CALLS[name])}  "
+                      f"plain {plain_ms:.4f} ms  bound {bms:.4f} ms ({by})  max|dscore| "
+                      f"{err:.2e}  rows with a clear k-th gap {int(gap.sum())}/{B}")
                 if (B, k) == (12, 20):        # the fleet's merged psa probe
-                    report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                        bound_ms=bms, bound_by=by, library_ms=lib,
-                                        shape=f"B={B} N={kb.shape[0]} d={d} C={C} "
-                                              f"real={n_real} distinct={n_rows} k={k}")
+                    report[name] = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bms,
+                                        bound_by=by, shape=f"B={B} N={kb.shape[0]} d={d} "
+                                                           f"C={C} real={n_real} "
+                                                           f"distinct={n_rows} k={k}", **t)
             for x, y in (("fused_gathered_topk", "gathered_topk"),
                          ("quant_fused_gathered_topk", "quant_gathered_topk")):
                 check(torch.equal(out[x][0], out[y][0]) and torch.equal(out[x][1], out[y][1]),
@@ -365,19 +448,19 @@ def check_quant_topk(dev, codes, scales, queries: np.ndarray, report: dict) -> N
             s_k, i_k = K.quant_dense_topk(q, codes, scales, k)
             s_p, i_p = K.quant_dense_topk_plain(q, codes, scales, k + 1)
             err, gap = compare_topk(f"B6 B={B} k={k}", s_k, i_k, s_p, i_p, k)
-            ms = cuda_ms(lambda: K.quant_dense_topk(q, codes, scales, k))
             plain = cuda_ms(lambda: K.quant_dense_topk_plain(q, codes, scales, k))
-            lib = cuda_ms(lambda: torch.topk((q @ codes.float().T) * scales, k))
+            t = timed(lambda: K.quant_dense_topk(q, codes, scales, k),
+                      lambda: torch.topk((q @ codes.float().T) * scales, k))
             bms, by = bound_ms(N * d + 4.0 * (N + B * d + 2 * B * k),
                                2.0 * B * N * d + B * N)
-            print(f"B6 quant_dense_topk N={N} d={d} B={B:3d} k={k:3d}: kernel {ms:.4f} ms  "
-                  f"plain {plain:.4f} ms  torch.topk((q@codes.float().T)*scales) {lib:.4f} ms  "
-                  f"bound {bms:.4f} ms ({by})  max|dscore| {err:.2e}  "
+            print(f"B6 quant_dense_topk N={N} d={d} B={B:3d} k={k:3d}: "
+                  f"{fmt_times(t, 'torch.topk((q@codes.float().T)*scales)')}  "
+                  f"plain {plain:.4f} ms  bound {bms:.4f} ms ({by})  max|dscore| {err:.2e}  "
                   f"rows with a clear k-th gap {int(gap.sum())}/{B}")
             if (B, k) == (12, 20):
-                report["quant_dense_topk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                                  bound_ms=bms, bound_by=by, library_ms=lib,
-                                                  shape=f"B={B} N={N} d={d} k={k} int8")
+                report["quant_dense_topk"] = dict(max_abs_err=err, plain_ms=plain, bound_ms=bms,
+                                                  bound_by=by, shape=f"B={B} N={N} d={d} k={k} "
+                                                                     f"int8", **t)
     rng = np.random.default_rng(5)
     gcodes, gscales = (torch.as_tensor(x, device=dev) for x in quantize_kb(
         grid_rows(rng, 375, 64, dev).repeat(9, 1)[:3001].cpu().numpy()))
@@ -402,11 +485,15 @@ def kernel_modules():
 
 
 def reset_counts() -> None:
-    *single, gathered = kernel_modules()
-    for m in single:
-        m.launches = 0
+    set_counts(dict.fromkeys(read_counts(), 0))
+
+
+def set_counts(counts: dict) -> None:
+    dense, decode, prefill, quant, gathered = kernel_modules()
+    dense.launches, decode.launches = counts["dense_topk"], counts["decode_attention"]
+    prefill.launches, quant.launches = counts["prefill_attention"], counts["quant_dense_topk"]
     for name in gathered.launches:
-        gathered.launches[name] = 0
+        gathered.launches[name] = counts[name]
 
 
 def read_counts() -> dict:
@@ -592,12 +679,18 @@ def recall_at(k: int, recorded, fp32, quant) -> dict:
     return {n: (float(np.mean(h)), len(h)) for n, h in hits.items()}
 
 
-def main() -> int:
+def main(argv) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--src", help="run phases 1-3 only, with the src/ directory of "
+                                      "this or another tree (e.g. an unpacked parent commit)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
     dev = torch.device("cuda:0")
+    if args.src:
+        sys.path.insert(0, str(Path(args.src).resolve()))
     import repro_torch  # noqa: F401  (switches TF32 off)
     from repro_torch.kernels import _build
     from repro_torch.retrieval.retrievers import ExactDenseRetriever, RetrieverStats
@@ -615,6 +708,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    print(f"kernels of {Path(repro_torch.__file__).resolve().parents[1]}")
 
     # phase 3: every kernel against its plain version
     report: dict = {}
@@ -630,6 +724,10 @@ def main() -> int:
     check_gathered(dev, fp32._kb, qb._codes, qb._scales, ivf, queries[:12], report)
     check_quant_topk(dev, qb._codes, qb._scales, queries, report)
     check_counts = read_counts()
+    if args.src:
+        print(json.dumps({"phase3": report}))
+        print(smi)
+        return 0
     torch.cuda.empty_cache()
 
     # phase 4: the serving paths, each with its own launch counts
@@ -671,11 +769,16 @@ def main() -> int:
     kernels = []
     for name, (cu, replaces) in sources.items():
         r = report[name]
+        # ms and library_ms are per-call times through the wrapper (host
+        # dispatch included), as call_ms; *device_ms are CUDA-graph replays
         entry = {"name": name, "route": "cuda", "source": src + cu,
                  "replaces": "src/repro/kernels/" + replaces, "launches": counts[name],
-                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "max_abs_err": r["max_abs_err"], "ms": r["call_ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_call_ms"],
+                 "device_ms": r["device_ms"], "call_ms": r["call_ms"],
+                 "library_device_ms": r["library_device_ms"],
+                 "library_call_ms": r["library_call_ms"],
                  "library_call": LIBRARY_CALLS[name], "shape": r["shape"]}
         if name in ("gathered_topk", "quant_gathered_topk"):
             # no serving route in either package: its launches are phase 3's
@@ -691,4 +794,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

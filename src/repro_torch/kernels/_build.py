@@ -138,5 +138,9 @@ def check_kernel_inputs(what: str, dtype, *tensors) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device`` (a CUDA
+    tensor's device, so its index is set): the stream a launch is enqueued
+    on, the capturing one during CUDA-graph capture. Read without building a
+    ``torch.cuda.Stream`` object, which costs microseconds per launch."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -11,56 +11,92 @@
 // Bound on an H100: at the serving path's short contexts (S ~ 100-300, hd 64)
 // neither bound is near: q, k, v and out are S*(2H + 2KV)*hd*4 bytes and the
 // allowed (query, key) pairs cost 4*hd FLOPs per head on the fp32 CUDA cores;
-// at long S the FLOPs bound it.
+// at long S the FLOPs bound it. A call is a few microseconds of work, so what
+// sets its time is how many SMs it fills and how long each CTA waits on loads.
 //
-// Design. One CTA per (q tile of kBQ rows, batch * head). The q tile sits in
-// shared memory; the CTA walks the k/v tiles in order and skips those wholly
+// Design. One CTA per (batch * head, q tile of kBQ = 16 rows): S = 160 gives
+// 160 CTAs at 16 heads, S = 300 gives 304, for the card's 132 SMs. The q tile
+// index runs backwards over blockIdx.y, so the tiles with the longest causal
+// walk are launched first. The CTA walks the k/v tiles, skipping those wholly
 // above the diagonal (unless they hold prefix keys) or wholly behind the
-// window, as the TPU kernel does (prefill_attention.py:44-48). The TPU grid
-// carried the softmax state from one kv grid step to the next; here the loop
-// over kv tiles inside the CTA carries it. Eight threads own one query row:
-// each scores four keys of the tile (a sequential fmaf chain over hd), the row
-// max and sum are reduced across the eight with warp shuffles, and each thread
-// accumulates hd / 8 output dimensions. Masked pairs contribute exactly zero,
-// so a row whose first tiles are all masked never picks up weight from them.
+// window, as the TPU kernel does (prefill_attention.py:44-48); the TPU grid
+// carried the softmax state from one kv grid step to the next, here the loop
+// inside the CTA carries it. k/v tiles are double-buffered: cp.async copies
+// the next tile while this one is scored. Sixteen threads (a half-warp) own a
+// pair of q rows: each scores kBK / 16 keys for both rows from 16-byte reads
+// of q and k (2 + kBK / 16 loads per 8 * kBK / 16 FMAs, each score a
+// sequential fmaf chain over hd), the row max and sum are reduced across the
+// half-warp with shuffles, and each thread accumulates hd / 16 output
+// dimensions of both rows from 16-byte reads of p and v. Masked pairs
+// contribute exactly zero, so a row whose first tiles are all masked never
+// picks up weight from them. No choice of tiling depends on B: an output row
+// depends only on its own sequence.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 32;
-constexpr int kBK = 32;
+constexpr int kThreads = 128;      // 8 row pairs x 16 threads
+constexpr int kBQ = 16;            // q rows per CTA
+constexpr int kCols = 16;          // threads sharing a row pair (one half-warp)
 constexpr float kNeg = -3.4e38f;
+
+template <int HD>
+struct Tile {
+  static constexpr int kBK = HD == 64 ? 64 : 32;   // keys per k/v tile
+  static constexpr int kKPT = kBK / kCols;          // keys per thread in q k^T
+  static constexpr int kDPT = HD / kCols;           // output dims per thread
+  static constexpr int kPitch = HD + 4;             // q and k rows: 16-byte reads of 8
+                                                    // consecutive rows hit 8 bank quads
+  static constexpr int kPPitch = kBK + 4;           // probability rows
+  static constexpr int kSmem =
+      4 * (kBQ * kPitch + 2 * kBK * kPitch + 2 * kBK * HD + kBQ * kPPitch);
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 prefill_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out, int S, int H,
                     int KV, int causal, int window, int prefix_len, float scale) {
-  constexpr int kPad = HD + 1;
-  constexpr int kDpt = HD / 8;               // output dims per thread
+  using Tl = Tile<HD>;
+  constexpr int kBK = Tl::kBK, kKPT = Tl::kKPT, kDPT = Tl::kDPT;
+  constexpr int kPitch = Tl::kPitch, kPPitch = Tl::kPPitch;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                          // [kBQ][kPad]
-  float* ks = qs + kBQ * kPad;               // [kBK][kPad]
-  float* vs = ks + kBK * kPad;               // [kBK][HD]
-  float* ps = vs + kBK * HD;                 // [kBQ][kBK + 1]
+  float* qs = smem;                          // [kBQ][kPitch]
+  float* ks = qs + kBQ * kPitch;             // [2][kBK][kPitch]
+  float* vs = ks + 2 * kBK * kPitch;         // [2][kBK][HD]
+  float* ps = vs + 2 * kBK * HD;             // [kBQ][kPPitch]
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int kvh = h / (H / KV);
-  const int q_lo = blockIdx.x * kBQ;
-  const int tid = threadIdx.x, r = tid / 8, sub = tid % 8;
-  const int qi = q_lo + r;
+  const int q_lo = (gridDim.y - 1 - blockIdx.y) * kBQ;   // longest causal walk first
+  const int tid = threadIdx.x, ct = tid % kCols;
+  const int r0 = 2 * (tid / kCols);          // this thread's rows: r0, r0 + 1
 
   for (int f = tid; f < kBQ * (HD / 4); f += kThreads) {
-    const int rr = f / (HD / 4), c4 = f % (HD / 4);
-    const int s = q_lo + rr;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (s < S)
-      x = *reinterpret_cast<const float4*>(q + ((static_cast<size_t>(b) * S + s) * H + h) * HD + c4 * 4);
-    float* dst = qs + rr * kPad + c4 * 4;
-    dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
+    const int r = f / (HD / 4), c4 = f % (HD / 4), s = q_lo + r;
+    const bool ok = s < S;
+    cp_async16(qs + r * kPitch + c4 * 4,
+               ok ? q + ((static_cast<size_t>(b) * S + s) * H + h) * HD + c4 * 4 : q,
+               ok ? 16 : 0);
   }
+  auto load_kv = [&](int kt, int buf) {
+    float* kd = ks + buf * kBK * kPitch;
+    float* vd = vs + buf * kBK * HD;
+    for (int f = tid; f < kBK * (HD / 4); f += kThreads) {
+      const int c = f / (HD / 4), c4 = f % (HD / 4), s = kt * kBK + c;
+      const bool ok = s < S;
+      const size_t off = ((static_cast<size_t>(b) * S + s) * KV + kvh) * HD + c4 * 4;
+      cp_async16(kd + c * kPitch + c4 * 4, ok ? k + off : k, ok ? 16 : 0);
+      cp_async16(vd + c * HD + c4 * 4, ok ? v + off : v, ok ? 16 : 0);
+    }
+  };
 
   const int nk = (S + kBK - 1) / kBK;
   int lo = 0, hi = nk;
@@ -71,101 +107,137 @@ prefill_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   if (window > 0 && q_lo - window > 0) lo = (q_lo - window) / kBK;
 
-  float m = kNeg, l = 0.0f;
-  float acc[kDpt];
+  load_kv(lo, 0);
+  cp_async_commit();                         // group: the q tile and the first k/v tile
+
+  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
+  float acc[2][kDPT];
 #pragma unroll
-  for (int e = 0; e < kDpt; ++e) acc[e] = 0.0f;
+  for (int e = 0; e < kDPT; ++e) acc[0][e] = acc[1][e] = 0.0f;
 
   for (int kt = lo; kt < hi; ++kt) {
-    const int k_lo = kt * kBK;
-    __syncthreads();                         // previous tile fully consumed
-    for (int f = tid; f < kBK * (HD / 4); f += kThreads) {
-      const int c = f / (HD / 4), c4 = f % (HD / 4);
-      const int s = k_lo + c;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (s < S) {
-        const size_t off = ((static_cast<size_t>(b) * S + s) * KV + kvh) * HD + c4 * 4;
-        kx = *reinterpret_cast<const float4*>(k + off);
-        vx = *reinterpret_cast<const float4*>(v + off);
-      }
-      float* kd = ks + c * kPad + c4 * 4;
-      kd[0] = kx.x; kd[1] = kx.y; kd[2] = kx.z; kd[3] = kx.w;
-      *reinterpret_cast<float4*>(vs + c * HD + c4 * 4) = vx;
+    const int buf = (kt - lo) & 1;
+    if (kt + 1 < hi) {
+      load_kv(kt + 1, buf ^ 1);              // in flight while this tile is scored
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* kt_s = ks + buf * kBK * kPitch;
+    const float* vt_s = vs + buf * kBK * HD;
 
-    float sc[kBK / 8];
-    bool ok[kBK / 8];
-    float mx = kNeg;
+    float s[2][kKPT];
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      const int c = sub + 8 * j, kidx = k_lo + c;
-      const float* qr = qs + r * kPad;
-      const float* kr = ks + c * kPad;
-      float a = 0.0f;
-#pragma unroll 16
-      for (int i = 0; i < HD; ++i) a = fmaf(qr[i], kr[i], a);
-      bool allowed = kidx < S;
-      if (causal) allowed = allowed && (kidx <= qi || (qi < prefix_len && kidx < prefix_len));
-      if (window > 0) allowed = allowed && (kidx > qi - window);
-      sc[j] = a * scale;
-      ok[j] = allowed;
-      if (allowed) mx = fmaxf(mx, sc[j]);
-    }
+    for (int j = 0; j < kKPT; ++j) s[0][j] = s[1][j] = 0.0f;
+#pragma unroll 4
+    for (int c = 0; c < HD; c += 4) {
+      const float4 qa = ld4(qs + r0 * kPitch + c), qb = ld4(qs + (r0 + 1) * kPitch + c);
 #pragma unroll
-    for (int o = 4; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    const float mn = fmaxf(m, mx);
-    const float corr = expf(m - mn);
-    float psum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      const float p = ok[j] ? expf(sc[j] - mn) : 0.0f;
-      ps[r * (kBK + 1) + sub + 8 * j] = p;
-      psum += p;
-    }
-#pragma unroll
-    for (int o = 4; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
-    l = l * corr + psum;
-    m = mn;
-    __syncwarp();                            // the row's eight threads share one warp
-#pragma unroll
-    for (int e = 0; e < kDpt; ++e) acc[e] *= corr;
-    for (int c = 0; c < kBK; ++c) {
-      const float p = ps[r * (kBK + 1) + c];
-      const float* vr = vs + c * HD + sub * kDpt;
-#pragma unroll
-      for (int e = 0; e < kDpt; e += 4) {
-        const float4 x = *reinterpret_cast<const float4*>(vr + e);
-        acc[e] = fmaf(p, x.x, acc[e]);
-        acc[e + 1] = fmaf(p, x.y, acc[e + 1]);
-        acc[e + 2] = fmaf(p, x.z, acc[e + 2]);
-        acc[e + 3] = fmaf(p, x.w, acc[e + 3]);
+      for (int j = 0; j < kKPT; ++j) {
+        const float4 kv = ld4(kt_s + (ct + kCols * j) * kPitch + c);
+        s[0][j] = fmaf(qa.x, kv.x, s[0][j]);
+        s[0][j] = fmaf(qa.y, kv.y, s[0][j]);
+        s[0][j] = fmaf(qa.z, kv.z, s[0][j]);
+        s[0][j] = fmaf(qa.w, kv.w, s[0][j]);
+        s[1][j] = fmaf(qb.x, kv.x, s[1][j]);
+        s[1][j] = fmaf(qb.y, kv.y, s[1][j]);
+        s[1][j] = fmaf(qb.z, kv.z, s[1][j]);
+        s[1][j] = fmaf(qb.w, kv.w, s[1][j]);
       }
     }
-    __syncwarp();                            // ps row read before the next write
-  }
 
-  if (qi < S) {
-    const float inv = 1.0f / fmaxf(l, 1e-30f);
-    float* o = out + ((static_cast<size_t>(b) * S + qi) * H + h) * HD + sub * kDpt;
+    const int k_lo = kt * kBK;
 #pragma unroll
-    for (int e = 0; e < kDpt; e += 4)
-      *reinterpret_cast<float4*>(o + e) =
-          make_float4(acc[e] * inv, acc[e + 1] * inv, acc[e + 2] * inv, acc[e + 3] * inv);
+    for (int a = 0; a < 2; ++a) {
+      const int qi = q_lo + r0 + a;
+      bool ok[kKPT];
+      float mx = kNeg;
+#pragma unroll
+      for (int j = 0; j < kKPT; ++j) {
+        const int kidx = k_lo + ct + kCols * j;
+        bool allowed = kidx < S;
+        if (causal) allowed = allowed && (kidx <= qi || (qi < prefix_len && kidx < prefix_len));
+        if (window > 0) allowed = allowed && (kidx > qi - window);
+        ok[j] = allowed;
+        s[a][j] *= scale;
+        if (allowed) mx = fmaxf(mx, s[a][j]);
+      }
+#pragma unroll
+      for (int o = kCols / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float mn = fmaxf(m[a], mx);
+      const float corr = expf(m[a] - mn);
+      float psum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kKPT; ++j) {
+        const float p = ok[j] ? expf(s[a][j] - mn) : 0.0f;
+        ps[(r0 + a) * kPPitch + ct + kCols * j] = p;
+        psum += p;
+      }
+#pragma unroll
+      for (int o = kCols / 2; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
+      l[a] = l[a] * corr + psum;
+      m[a] = mn;
+#pragma unroll
+      for (int e = 0; e < kDPT; ++e) acc[a][e] *= corr;
+    }
+    __syncwarp();                            // the row pair's half-warp wrote its p rows
+
+#pragma unroll 2
+    for (int c = 0; c < kBK; c += 4) {
+      const float4 pa4 = ld4(ps + r0 * kPPitch + c), pb4 = ld4(ps + (r0 + 1) * kPPitch + c);
+      const float pa[4] = {pa4.x, pa4.y, pa4.z, pa4.w};
+      const float pb[4] = {pb4.x, pb4.y, pb4.z, pb4.w};
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const float* vr = vt_s + (c + cc) * HD + ct * 4;
+#pragma unroll
+        for (int e4 = 0; e4 < kDPT / 4; ++e4) {
+          const float4 x = ld4(vr + 64 * e4);
+          const int e = 4 * e4;
+          acc[0][e] = fmaf(pa[cc], x.x, acc[0][e]);
+          acc[0][e + 1] = fmaf(pa[cc], x.y, acc[0][e + 1]);
+          acc[0][e + 2] = fmaf(pa[cc], x.z, acc[0][e + 2]);
+          acc[0][e + 3] = fmaf(pa[cc], x.w, acc[0][e + 3]);
+          acc[1][e] = fmaf(pb[cc], x.x, acc[1][e]);
+          acc[1][e + 1] = fmaf(pb[cc], x.y, acc[1][e + 1]);
+          acc[1][e + 2] = fmaf(pb[cc], x.z, acc[1][e + 2]);
+          acc[1][e + 3] = fmaf(pb[cc], x.w, acc[1][e + 3]);
+        }
+      }
+    }
+    __syncthreads();                         // both buffers and the p rows consumed
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int qi = q_lo + r0 + a;
+    if (qi < S) {
+      const float inv = 1.0f / fmaxf(l[a], 1e-30f);
+      float* o = out + ((static_cast<size_t>(b) * S + qi) * H + h) * HD + ct * 4;
+#pragma unroll
+      for (int e4 = 0; e4 < kDPT / 4; ++e4)
+        *reinterpret_cast<float4*>(o + 64 * e4) =
+            make_float4(acc[a][4 * e4] * inv, acc[a][4 * e4 + 1] * inv,
+                        acc[a][4 * e4 + 2] * inv, acc[a][4 * e4 + 3] * inv);
+    }
   }
 }
 
 template <int HD>
 void launch(const float* q, const float* k, const float* v, float* out, int B, int S,
             int H, int KV, int causal, int window, int prefix_len, cudaStream_t stream) {
-  constexpr int kPad = HD + 1;
-  const size_t smem = sizeof(float) * (kBQ * kPad + kBK * kPad + kBK * HD + kBQ * (kBK + 1));
-  cudaFuncSetAttribute(prefill_attn_kernel<HD>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  // once per instantiation, not per launch: a launch inside CUDA-graph
+  // capture makes no other runtime call
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<HD>::kSmem);
+  (void)attr;
+  dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
-  prefill_attn_kernel<HD><<<grid, kThreads, smem, stream>>>(q, k, v, out, S, H, KV, causal,
-                                                            window, prefix_len, scale);
+  prefill_attn_kernel<HD><<<grid, kThreads, Tile<HD>::kSmem, stream>>>(
+      q, k, v, out, S, H, KV, causal, window, prefix_len, scale);
 }
 
 }  // namespace

@@ -15,7 +15,7 @@
 namespace {
 
 constexpr int kMergeThreads = 1024;
-constexpr int kMergeBuf = 2048;    // keys sorted at once in the merge
+constexpr int kMergeBuf = 2048;    // keys sorted at once in the merge (default)
 constexpr float kNeg = -3.4e38f;
 
 __device__ __forceinline__ uint32_t ord_of(float f) {
@@ -55,23 +55,24 @@ __device__ void bitonic_desc(uint64_t* keys, int nseg) {
 }
 
 // One level of the merge: each CTA sorts the lists [g*G, g*G + G) of one
-// query (G * k <= kMergeBuf keys) and keeps the best k, so every level cuts
+// query (G * k <= BUF keys) and keeps the best k, so every level cuts
 // the lists per query by G. The last level (one list left) writes scores and
 // ids instead of keys. With cand == nullptr a key's pos is the id; else pos
 // is a column of cand (B, C), and a pad column (cand < 0), a column past C
 // or an empty key comes out as (kNeg, -1).
+template <int BUF>
 __global__ void __launch_bounds__(kMergeThreads)
 topk_merge_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                   float* __restrict__ scores, int* __restrict__ ids, int n_in, int k,
                   int G, const int* __restrict__ cand, int C) {
-  __shared__ uint64_t buf[kMergeBuf];
+  __shared__ uint64_t buf[BUF];
   const int g = blockIdx.x, b = blockIdx.y, n_out = gridDim.x;
   const int total = min(G, n_in - g * G) * k;
   const uint64_t* src = in + (static_cast<size_t>(b) * n_in + g * G) * k;
-  for (int x = threadIdx.x; x < kMergeBuf; x += blockDim.x)
+  for (int x = threadIdx.x; x < BUF; x += blockDim.x)
     buf[x] = x < total ? src[x] : 0ull;        // empty slot: the smallest key
   __syncthreads();
-  bitonic_desc<kMergeBuf>(buf, 1);
+  bitonic_desc<BUF>(buf, 1);
   for (int i = threadIdx.x; i < k; i += blockDim.x) {
     const uint64_t key = buf[i];
     const size_t o = static_cast<size_t>(b) * k + i;
@@ -92,16 +93,21 @@ topk_merge_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
 
 // The merge levels over n partial lists of k keys per query, ping-ponging
 // between the lists and a second region of ceil(n / 8) lists right after
-// them (G >= 8 since k <= 256; the lists only shrink). `partial` holds
-// B * k * (n + ceil(n / 8)) keys.
+// them (G >= 8 since k <= 256 and BUF >= 2048; the lists only shrink).
+// `partial` holds B * k * (n + ceil(n / 8)) keys. Keys are unique per query,
+// so the result does not depend on BUF or on how the lists are grouped. A
+// larger BUF takes fewer levels for many lists and costs a longer sort for
+// few: the gathered scans (~123 lists of k keys) keep 2048, where 4096 took
+// ~0.016 ms more per call at k = 1 and 256 on an H100 (PERF.md).
+template <int BUF = kMergeBuf>
 void launch_merge(uint64_t* partial, float* scores, int* ids, int B, int n, int k,
                   const int* cand, int C, cudaStream_t stream) {
-  const int G = kMergeBuf / k;
+  const int G = BUF / k;
   uint64_t* bufs[2] = {partial, partial + static_cast<size_t>(B) * k * n};
   int cur = 0;
   do {
     const int n_out = (n + G - 1) / G;
-    topk_merge_kernel<<<dim3(n_out, B), kMergeThreads, 0, stream>>>(
+    topk_merge_kernel<BUF><<<dim3(n_out, B), kMergeThreads, 0, stream>>>(
         bufs[cur], bufs[cur ^ 1], scores, ids, n, k, G, cand, C);
     n = n_out;
     cur ^= 1;

@@ -30,16 +30,49 @@ def dense_topk_plain(queries: torch.Tensor, kb: torch.Tensor, k: int):
     return scores[:, :k].contiguous(), ids[:, :k].to(torch.int32)
 
 
-def _launch_fn():
+TILE_ROWS = 256        # KB rows per tile of the scan (kTileRows in dense_topk.cu)
+_sms: dict = {}
+
+
+def scan_scratch(B: int, N: int, k: int, sms: int):
+    """(lists, bytes) of one B1/B6 kernel call on a card with ``sms`` SMs:
+    the scan's CTAs per query block, one per SM and none without a row tile,
+    each write one partial list of k sort keys (8 bytes) per query; the merge
+    levels take room for ceil(lists / 8) more."""
+    lists = max(1, min(-(-N // TILE_ROWS), sms))
+    return lists, 8 * B * k * (lists + -(-lists // 8))
+
+
+def check_scan_args(what: str, d: int, k: int, d_multiple: int) -> None:
+    """What the B1/B6 kernels refuse: k past MAX_K, d not a multiple of
+    ``d_multiple`` (the elements of one 16-byte copy)."""
+    if k > MAX_K:
+        raise ValueError(f"{what}: the kernel takes k <= {MAX_K}, got {k}")
+    if d % d_multiple:
+        raise ValueError(f"{what}: the kernel takes d % {d_multiple} == 0, got d={d}")
+
+
+def launch_scan(entry: str, tensors, B: int, N: int, d: int, k: int):
+    """Allocate the scratch and outputs and launch ``entry`` of
+    ``csrc/dense_topk.cu`` on (q, rows[, scales]) -> (scores, ids)."""
     lib = _build.library("dense_topk")
-    fn = lib.dense_topk_launch
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p] * (len(tensors) + 3) + [i] * 5 + [p]
         fn.restype = i
-        lib.dense_topk_split_rows.argtypes = [i]
-        lib.dense_topk_split_rows.restype = i
-    return fn, lib.dense_topk_split_rows
+    dev = tensors[0].device
+    sms = _sms.get(dev.index)
+    if sms is None:
+        sms = _sms[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    lists, nbytes = scan_scratch(B, N, k, sms)
+    partial = torch.empty((nbytes // 8,), dtype=torch.int64, device=dev)
+    scores = torch.empty((B, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    rc = fn(*(t.data_ptr() for t in tensors), partial.data_ptr(), scores.data_ptr(),
+            ids.data_ptr(), B, N, d, k, lists, _build.stream_ptr(dev))
+    _build.check(rc, entry)
+    return scores, ids
 
 
 def dense_topk(queries: torch.Tensor, kb: torch.Tensor, k: int):
@@ -54,22 +87,8 @@ def dense_topk(queries: torch.Tensor, kb: torch.Tensor, k: int):
         raise ValueError(f"dense_topk: k={k} outside [1, N={N}]")
     if _build.on_cpu("dense_topk", queries, kb):
         return dense_topk_plain(queries, kb, k)
-    if k > MAX_K:
-        raise ValueError(f"dense_topk: the kernel takes k <= {MAX_K}, got {k}")
-    if d % 4:
-        raise ValueError(f"dense_topk: the kernel takes d % 4 == 0, got d={d}")
+    check_scan_args("dense_topk", d, k, 4)
     _build.check_kernel_inputs("dense_topk", torch.float32, queries, kb)
-    fn, split_rows = _launch_fn()
-    n_splits = -(-N // split_rows(B))
-    dev = queries.device
-    # per-split partial lists plus room for the merge levels' lists
-    partial = torch.empty((B * k * (n_splits + -(-n_splits // 8)),),
-                          dtype=torch.int64, device=dev)
-    scores = torch.empty((B, k), dtype=torch.float32, device=dev)
-    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    rc = fn(queries.data_ptr(), kb.data_ptr(), partial.data_ptr(),
-            scores.data_ptr(), ids.data_ptr(), B, N, d, k,
-            _build.stream_ptr(dev))
+    out = launch_scan("dense_topk_launch", (queries, kb), B, N, d, k)
     launches += 1
-    _build.check(rc, "dense_topk")
-    return scores, ids
+    return out

@@ -56,13 +56,18 @@ def prefill_attention_plain(q, k, v, *, causal=True, window=0, prefix_len=0):
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
+_fn = None
+
+
 def _launch_fn():
-    fn = _build.library("prefill_attention").prefill_attention_launch
-    if fn.argtypes is None:
+    global _fn
+    if _fn is None:
+        fn = _build.library("prefill_attention").prefill_attention_launch
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = i
-    return fn
+        _fn = fn
+    return _fn
 
 
 def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -84,8 +89,8 @@ def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0,
     _build.check_kernel_inputs("prefill_attention", torch.float32, q, k, v)
     out = torch.empty_like(q)
     rc = _launch_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                      B, S, H, KV, hd, int(causal), int(window),
-                      int(prefix_len), _build.stream_ptr(q.device))
-    launches += 1
+                      B, S, H, KV, hd, int(causal), int(window), int(prefix_len),
+                      _build.stream_ptr(q.device))
     _build.check(rc, "prefill_attention")
+    launches += 1
     return out

@@ -13,12 +13,10 @@ PyTorch version (:func:`quant_dense_topk_plain`) on CPU tensors.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dense_topk import MAX_K, _launch_fn
+from repro_torch.kernels.dense_topk import check_scan_args, launch_scan
 
 launches = 0
 
@@ -47,28 +45,9 @@ def quant_dense_topk(queries: torch.Tensor, codes: torch.Tensor,
         raise ValueError(f"quant_dense_topk: k={k} outside [1, N={N}]")
     if _build.on_cpu("quant_dense_topk", queries, codes, scales):
         return quant_dense_topk_plain(queries, codes, scales, k)
-    if k > MAX_K:
-        raise ValueError(f"quant_dense_topk: the kernel takes k <= {MAX_K}, got {k}")
-    if d % 16:
-        raise ValueError(f"quant_dense_topk: the kernel takes d % 16 == 0, got d={d}")
+    check_scan_args("quant_dense_topk", d, k, 16)
     _build.check_kernel_inputs("quant_dense_topk", torch.float32, queries, scales)
     _build.check_kernel_inputs("quant_dense_topk", torch.int8, codes)
-    lib = _build.library("dense_topk")
-    fn = lib.quant_topk_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 6 + [i] * 4 + [p]
-        fn.restype = i
-    _, split_rows = _launch_fn()             # B1's split, same library
-    n_splits = -(-N // split_rows(B))
-    dev = queries.device
-    # per-split partial lists plus room for the merge levels' lists
-    partial = torch.empty((B * k * (n_splits + -(-n_splits // 8)),),
-                          dtype=torch.int64, device=dev)
-    scores = torch.empty((B, k), dtype=torch.float32, device=dev)
-    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    rc = fn(queries.data_ptr(), codes.data_ptr(), scales.data_ptr(), partial.data_ptr(),
-            scores.data_ptr(), ids.data_ptr(), B, N, d, k, _build.stream_ptr(dev))
+    out = launch_scan("quant_topk_launch", (queries, codes, scales), B, N, d, k)
     launches += 1
-    _build.check(rc, "quant_dense_topk")
-    return scores, ids
+    return out

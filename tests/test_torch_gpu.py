@@ -43,16 +43,35 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,k", [(1, 1), (12, 20), (64, 256)])
-def test_dense_topk_kernel_matches_plain(cuda, B, k):
-    rng = np.random.default_rng(B + k)
-    kb = torch.from_numpy(_tie_heavy(rng, 3001, 64)).to(cuda)
-    q = torch.from_numpy(_grid(rng, B, 64)).to(cuda)
-    before = DT.launches
-    s_k, i_k = DT.dense_topk(q, kb, k)
-    s_p, i_p = DT.dense_topk_plain(q, kb, k)
-    assert DT.launches == before + 1
-    assert torch.equal(s_k, s_p) and torch.equal(i_k, i_p)
+def _unit(rng, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("kind", ["grid", "unit"])
+@pytest.mark.parametrize("N", [3001, 100, 70_001])    # a multiple of no tile, < one
+@pytest.mark.parametrize("k", [1, 20, 256])           # tile, more tiles than SMs
+def test_dense_topk_kernel_matches_plain(cuda, kind, N, k):
+    """B=1, 12 and 64 (every query-block width): on a tie-heavy grid KB the
+    kernel equals the plain version byte for byte; on a unit-normal KB its
+    scores are within 1e-5 of the plain version's; on both the B=1 and B=12
+    rows equal the B=64 rows byte for byte."""
+    rng = np.random.default_rng(N + k)
+    k = min(k, N)
+    make = _tie_heavy if kind == "grid" else _unit
+    kb = torch.from_numpy(make(rng, N, 64)).to(cuda)
+    q = torch.from_numpy((_grid if kind == "grid" else _unit)(rng, 64, 64)).to(cuda)
+    rows = {}
+    for B in (64, 12, 1):
+        before = DT.launches
+        rows[B] = DT.dense_topk(q[:B], kb, k)
+        assert DT.launches == before + 1
+        s_p, i_p = DT.dense_topk_plain(q[:B], kb, k)
+        if kind == "grid":
+            assert torch.equal(rows[B][0], s_p) and torch.equal(rows[B][1], i_p)
+        else:
+            torch.testing.assert_close(rows[B][0], s_p, rtol=0, atol=1e-5)
+        assert torch.equal(rows[B][0], rows[64][0][:B]) and torch.equal(rows[B][1], rows[64][1][:B])
 
 
 @pytest.mark.parametrize("H,KV,hd", [(16, 16, 64), (16, 4, 64), (8, 2, 128)])
@@ -70,20 +89,31 @@ def test_decode_attention_kernel_matches_plain(cuda, H, KV, hd):
                                rtol=0, atol=2e-5)
 
 
-@pytest.mark.parametrize("S,H,KV,hd,window,prefix", [
-    (112, 16, 16, 64, 0, 0), (300, 16, 16, 64, 0, 0), (300, 16, 16, 64, 64, 0),
-    (200, 16, 16, 64, 0, 37), (160, 16, 4, 64, 0, 0), (70, 4, 2, 128, 0, 0)])
-def test_prefill_attention_kernel_matches_plain(cuda, S, H, KV, hd, window, prefix):
-    g = torch.Generator(device=cuda).manual_seed(S + H)
-    q = torch.randn((1, S, H, hd), generator=g, device=cuda)
-    k = torch.randn((1, S, KV, hd), generator=g, device=cuda)
-    v = torch.randn((1, S, KV, hd), generator=g, device=cuda)
-    kw = dict(causal=True, window=window, prefix_len=prefix)
+@pytest.mark.parametrize("S,H,KV,hd,causal,window,prefix", [
+    (112, 16, 16, 64, True, 0, 0), (300, 16, 16, 64, True, 0, 0),
+    (300, 16, 16, 64, True, 64, 0), (200, 16, 16, 64, True, 0, 37),
+    (160, 16, 4, 64, True, 0, 0), (70, 4, 2, 128, True, 0, 0),
+    # the 16-row q tiles' and the k/v tiles' edges
+    (1, 4, 4, 64, True, 0, 0), (15, 4, 2, 64, True, 8, 0), (16, 4, 4, 128, True, 0, 5),
+    (17, 4, 1, 64, True, 0, 0), (33, 8, 2, 128, True, 16, 0), (33, 4, 4, 64, False, 0, 0),
+    (300, 8, 2, 128, True, 0, 37), (513, 8, 8, 64, True, 100, 0),
+    (513, 4, 2, 128, True, 0, 0)])
+def test_prefill_attention_kernel_matches_plain(cuda, S, H, KV, hd, causal, window, prefix):
+    """B=2 within 2e-5 of the plain version; each sequence's rows equal a
+    B=1 call's byte for byte."""
+    g = torch.Generator(device=cuda).manual_seed(S + H + hd)
+    q = torch.randn((2, S, H, hd), generator=g, device=cuda)
+    k = torch.randn((2, S, KV, hd), generator=g, device=cuda)
+    v = torch.randn((2, S, KV, hd), generator=g, device=cuda)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
     before = PA.launches
     out = PA.prefill_attention(q, k, v, **kw)
     assert PA.launches == before + 1
     torch.testing.assert_close(out, PA.prefill_attention_plain(q, k, v, **kw),
                                rtol=0, atol=2e-5)
+    for b in range(2):
+        assert torch.equal(PA.prefill_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw)[0],
+                           out[b])
 
 
 def test_kernel_backend_on_cuda_matches_numpy(cuda):
@@ -153,11 +183,13 @@ def test_gathered_kernels_match_plain(cuda, d, k):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
 
 
-@pytest.mark.parametrize("B,k", [(1, 1), (12, 20), (64, 256)])
-def test_quant_topk_kernel_matches_plain(cuda, B, k):
-    rng = np.random.default_rng(B + k + 1)
+@pytest.mark.parametrize("N", [3001, 100])
+@pytest.mark.parametrize("B,k", [(1, 1), (12, 20), (64, 20), (64, 256)])
+def test_quant_topk_kernel_matches_plain(cuda, N, B, k):
+    rng = np.random.default_rng(B + k + N)
+    k = min(k, N)
     codes, scales = (torch.from_numpy(a).to(cuda)
-                     for a in quantize_kb(_tie_heavy(rng, 3001, 64)))
+                     for a in quantize_kb(_tie_heavy(rng, N, 64)))
     q = torch.from_numpy(_grid(rng, B, 64)).to(cuda)
     before = QT.launches
     s_k, i_k = QT.quant_dense_topk(q, codes, scales, k)
@@ -209,3 +241,37 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
         QT.quant_dense_topk(torch.zeros((1, 16), device=cuda),
                             torch.zeros((300, 16), dtype=torch.int8, device=cuda),
                             torch.ones(300, device=cuda), 257)
+
+
+def test_kernel_launches_capture_in_a_cuda_graph(cuda):
+    """A wrapper's launch makes no CUDA runtime call besides the launch (the
+    shared-memory attribute is set once per kernel), so the calls capture in
+    a CUDA graph in global mode and replay to the eager results."""
+    rng = np.random.default_rng(12)
+    emb = _tie_heavy(rng, 3001, 64)
+    kb = torch.from_numpy(emb).to(cuda)
+    codes, scales = (torch.from_numpy(a).to(cuda) for a in quantize_kb(emb))
+    q = torch.from_numpy(_grid(rng, 12, 64)).to(cuda)
+    cand = torch.from_numpy(_ragged_cand(rng, 12, 700, 3001)).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    pq, pk, pv = (torch.randn((1, 160, 16, 64), generator=g, device=cuda) for _ in range(3))
+    dq = torch.randn((4, 16, 64), generator=g, device=cuda)
+    kc, vc = (torch.randn((4, 512, 16, 64), generator=g, device=cuda) for _ in range(2))
+    lens = torch.tensor([1, 97, 300, 512], dtype=torch.int32, device=cuda)
+    calls = [lambda: DT.dense_topk(q, kb, 20), lambda: QT.quant_dense_topk(q, codes, scales, 20),
+             lambda: GT.fused_gathered_topk(q, kb, cand, 20),
+             lambda: (PA.prefill_attention(pq, pk, pv),),
+             lambda: (DA.decode_attention(dq, kc, vc, lens),)]
+    for fn in calls:
+        want = fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -85,6 +85,59 @@ def test_dense_topk_rejects_bad_k():
         DT.dense_topk(torch.zeros((1, 4)), kb, 0)
 
 
+@pytest.mark.parametrize("B", [1, 12, 64])
+@pytest.mark.parametrize("k", [1, 20, 256])
+@pytest.mark.parametrize("N", [1, 255, 256, 257, 33_792, 500_000])
+def test_scan_scratch_follows_the_list_count(B, k, N):
+    """B1/B6 scratch: one partial list of k keys per query from each scan CTA
+    (one per SM, none without a 256-row tile), plus the merge's room."""
+    for sms in (132, 7):
+        lists, nbytes = DT.scan_scratch(B, N, k, sms)
+        assert lists == max(1, min(-(-N // DT.TILE_ROWS), sms))
+        assert 1 <= lists <= sms and (lists - 1) * DT.TILE_ROWS < N
+        assert nbytes == 8 * B * k * (lists + -(-lists // 8))
+    assert DT.scan_scratch(B, N, k, 132)[0] == (132 if N > 131 * 256 else -(-N // 256))
+
+
+def _kernel_path(monkeypatch):
+    """Make the wrappers take their kernel path on CPU tensors: the checks
+    before a launch run, and a launch would fail (no CUDA library here)."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "on_cpu", lambda *_: False)
+    monkeypatch.setattr(_build, "library", lambda name: pytest.fail("reached the launch"))
+
+
+@pytest.mark.parametrize("case", ["k", "d", "dtype", "contiguous"])
+def test_scan_wrappers_refuse_what_the_kernel_does_not_take(monkeypatch, case):
+    """B1 and B6 refuse k > 256, d not a multiple of 4 (B1) or 16 (B6), a
+    wrong dtype and non-contiguous input before any launch."""
+    _kernel_path(monkeypatch)
+    d, k = (6 if case == "d" else 16), (257 if case == "k" else 4)
+    q = torch.zeros((2, d), dtype=torch.float64 if case == "dtype" else torch.float32)
+    kb = torch.zeros((300, d))
+    codes = torch.zeros((300, d + 2 if case == "d" else d), dtype=torch.int8)
+    if case == "contiguous":
+        kb, codes = torch.zeros((d, 300)).T, torch.zeros((d, 300), dtype=torch.int8).T
+    err = TypeError if case == "dtype" else ValueError
+    with pytest.raises(err):
+        DT.dense_topk(q, kb, k)
+    qq = torch.zeros((2, codes.shape[1]), dtype=q.dtype)
+    with pytest.raises(err):
+        QT.quant_dense_topk(qq, codes, torch.ones(300), k)
+
+
+@pytest.mark.parametrize("case", ["hd", "dtype", "contiguous"])
+def test_prefill_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch, case):
+    _kernel_path(monkeypatch)
+    hd = 32 if case == "hd" else 64
+    q = torch.zeros((1, 8, 4, hd), dtype=torch.float64 if case == "dtype" else torch.float32)
+    k = torch.zeros((1, 8, 2, hd))
+    if case == "contiguous":
+        k = torch.zeros((1, 2, 8, hd)).transpose(1, 2)
+    with pytest.raises(TypeError if case == "dtype" else ValueError):
+        PA.prefill_attention(q, k, k)
+
+
 # ---------------------------------------------------------------------------------
 # B4, B5, B7, B8 gathered scans and B6 int8 scan
 # ---------------------------------------------------------------------------------
