@@ -10,8 +10,12 @@
 3. kernels: each of the eight kernels (B1-B8) against its plain PyTorch
    version on the card, at the main paths' shapes (the gathered scans over
    the candidate matrix of the ADR index from real queries, B6 over the int8
-   codes of the serving KB) and on tie-heavy grid KBs; B1's rows at B=1 and
-   B=12 against its B=64 rows on the serving KB, B3 at its tile edges. Each
+   codes of the serving KB) and on tie-heavy grid KBs, the scans at k = 1,
+   20, 256 and 300 (above 256: the key pass and the select pass); B1's rows
+   at B=1 and B=12 against its B=64 rows on the serving KB, B3 at its tile
+   edges; both kernel backends at d = 6 and 50 against the numpy backends
+   (any d: ROADMAP fault C1). A tree run with --src that refuses k > 256
+   and such d is checked without those shapes. Each
    kernel and one library call as its yardstick get two times: the device
    time (20 calls captured in a CUDA graph, the replay timed with CUDA
    events) and the per-call time (CUDA events around 5 back-to-back calls,
@@ -54,6 +58,19 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32, CUDA cores (NVIDIA data sheet)
 SERVE_N_DOCS = 500_000          # DPR's Wikipedia has 21M passages of d = 768
 SERVE_ENC_DIM = 768
+
+
+def takes_any_d_and_k() -> bool:
+    """Whether the kernels of the tree under test take any d and k > 256
+    (an older tree, run with --src, refuses them: those shapes are skipped)."""
+    from repro_torch.kernels import dense_topk
+    return hasattr(dense_topk, "pad_d")
+
+
+def scan_ks() -> tuple:
+    """The k of the scan checks: the serving k (1, prefetch 20), the lists'
+    largest (256) and one above it (300: the key pass and the select pass)."""
+    return (1, 20, 256, 300) if takes_any_d_and_k() else (1, 20, 256)
 
 
 def check(ok, what: str) -> None:
@@ -176,7 +193,7 @@ def check_dense_topk(dev, N: int, d: int, report: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(1)
     kb = unit_rows(gen, N, d, dev)
     q64 = unit_rows(gen, 64, d, dev)
-    for k in (1, 20, 256):
+    for k in scan_ks():
         rows = {}
         for B in (1, 12, 64):
             q = q64[:B]
@@ -198,14 +215,14 @@ def check_dense_topk(dev, N: int, d: int, report: dict) -> None:
         for B in (1, 12):
             check(torch.equal(rows[B][0], s64[:B]) and torch.equal(rows[B][1], i64[:B]),
                   f"B1 unit KB k={k}: B={B} rows != B=64 rows")
-    print(f"B1 unit KB N={N} d={d}, k in {{1, 20, 256}}: B=1 and B=12 rows == B=64 rows "
+    print(f"B1 unit KB N={N} d={d}, k in {set(scan_ks())}: B=1 and B=12 rows == B=64 rows "
           f"byte for byte")
     # tie-heavy grid KB, N a multiple of no tile: byte-identical, batch-invariant
     rng = np.random.default_rng(3)
     base = grid_rows(rng, 375, 64, dev)
     gkb = base.repeat(9, 1)[:3001].contiguous()
     qs = grid_rows(rng, 12, 64, dev)
-    for k in (1, 20, 256):
+    for k in scan_ks():
         s12, i12 = K.dense_topk(qs, gkb, k)
         s1, i1 = K.dense_topk(qs[:1].contiguous(), gkb, k)
         sp, ip = K.dense_topk_plain(qs, gkb, k)
@@ -217,8 +234,8 @@ def check_dense_topk(dev, N: int, d: int, report: dict) -> None:
     ki, ks = TorchKernelBackend(small, device=dev).search(qn, 256)
     check(fi.shape == (3, 100) and np.array_equal(fi, ki) and np.array_equal(fs, ks),
           "B1 backend k=256 > N=100 differs from numpy")
-    print("B1 grid KB N=3001 d=64 (tie-heavy), k in {1, 20, 256}: kernel == plain "
-          "byte for byte, B=1 rows == B=12 rows; backend k=256 > N=100 == numpy")
+    print(f"B1 grid KB N=3001 d=64 (tie-heavy), k in {set(scan_ks())}: kernel == plain "
+          f"byte for byte, B=1 rows == B=12 rows; backend k=256 > N=100 == numpy")
 
 
 def check_decode_attention(dev, report: dict) -> None:
@@ -355,7 +372,7 @@ def check_gathered(dev, kb, codes, scales, ivf, queries: np.ndarray, report: dic
     d = kb.shape[1]
     for B in (1, 12):
         q = torch.as_tensor(queries[:B], device=dev)
-        for k in (1, 20, 256):
+        for k in scan_ks():
             cand_np, counts = ivf._gather_candidates(queries[:B], k)
             cand = torch.as_tensor(cand_np.astype(np.int32), device=dev)
             real = cand >= 0
@@ -401,6 +418,10 @@ def check_gathered(dev, kb, codes, scales, ivf, queries: np.ndarray, report: dic
                                         bound_by=by, shape=f"B={B} N={kb.shape[0]} d={d} "
                                                            f"C={C} real={n_real} "
                                                            f"distinct={n_rows} k={k}", **t)
+                if B == 1:                    # RaLMSeq's probe, per k
+                    report.setdefault(f"{name}@B=1", {})[f"k={k}"] = dict(
+                        max_abs_err=err, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                        shape=f"B=1 C={C} real={n_real} distinct={n_rows}", **t)
             for x, y in (("fused_gathered_topk", "gathered_topk"),
                          ("quant_fused_gathered_topk", "quant_gathered_topk")):
                 check(torch.equal(out[x][0], out[y][0]) and torch.equal(out[x][1], out[y][1]),
@@ -414,7 +435,7 @@ def check_gathered(dev, kb, codes, scales, ivf, queries: np.ndarray, report: dic
     gq = grid_rows(rng, 12, d, dev)
     gcand = torch.as_tensor(ragged_cand(rng, 12, 1300, 3001), device=dev)
     args = gathered_args(gq, gkb, gcodes, gscales, gcand)
-    for k in (1, 20, 256):
+    for k in scan_ks():
         out = {}
         for name, a in args.items():
             out[name] = getattr(GT, name)(*a, k)
@@ -432,8 +453,43 @@ def check_gathered(dev, kb, codes, scales, ivf, queries: np.ndarray, report: dic
               f"grid k={k}: fused != pre-gathered")
         check(bool((out["fused_gathered_topk"][1][2] == -1).all()), "all-pad row not (NEG, -1)")
     print(f"B4 B5 B7 B8 grid KB N=3001 d={d} (tie-heavy), B=12 C=1300 ragged with a "
-          f"duplicate id and an all-pad row, k in {{1, 20, 256}}: kernel == plain byte "
+          f"duplicate id and an all-pad row, k in {set(scan_ks())}: kernel == plain byte "
           f"for byte, B4 == B5, B7 == B8, B=1 rows == B=12 rows")
+
+
+def check_any_d(dev) -> None:
+    """ROADMAP fault C1: both kernel backends at d = 6 and 50 (KB padded at
+    upload, queries per call), k = 20 and 300, full and gathered scans,
+    against the numpy backends byte for byte on a tie-heavy grid KB; every
+    call launches its kernel."""
+    from repro_torch.retrieval.backends import (FlatBackend, QuantizedFlatBackend,
+                                                TorchKernelBackend,
+                                                TorchQuantizedKernelBackend)
+    rng = np.random.default_rng(6)
+    for d in (6, 50):
+        emb = grid_rows(rng, 375, d, dev).repeat(8, 1)[:3000].cpu().numpy()
+        flat, kern = FlatBackend(emb), TorchKernelBackend(emb, device=dev)
+        qflat, qkern = QuantizedFlatBackend(emb), TorchQuantizedKernelBackend(emb, device=dev)
+        qs = grid_rows(rng, 3, d, dev).cpu().numpy()
+        cand = ragged_cand(rng, 3, 700, 3000).astype(np.int64)
+        for k in (20, 300):
+            for label, want, call, kernel in (
+                    ("kernel search", flat.search(qs, k), lambda: kern.search(qs, k),
+                     "dense_topk"),
+                    ("int8-kernel search", qflat.search(qs, k), lambda: qkern.search(qs, k),
+                     "quant_dense_topk"),
+                    ("kernel search_gathered", flat.search_gathered(qs, cand, k),
+                     lambda: kern.search_gathered(qs, cand, k), "fused_gathered_topk"),
+                    ("int8-kernel search_gathered", qflat.search_gathered(qs, cand, k),
+                     lambda: qkern.search_gathered(qs, cand, k), "quant_fused_gathered_topk")):
+                before = read_counts()[kernel]
+                got = call()
+                check(read_counts()[kernel] == before + 1, f"C1 {label} d={d} k={k}: no launch")
+                check(np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1]),
+                      f"C1 {label} d={d} k={k}: differs from the numpy backend")
+    print("C1: kernel and int8-kernel backends at d in {6, 50}, B=3, N=3000, k in {20, 300} "
+          "(search and search_gathered, C=700) == numpy backends byte for byte; each call "
+          "launched its kernel")
 
 
 def check_quant_topk(dev, codes, scales, queries: np.ndarray, report: dict) -> None:
@@ -444,7 +500,7 @@ def check_quant_topk(dev, codes, scales, queries: np.ndarray, report: dict) -> N
     N, d = codes.shape
     for B in (1, 12, 64):
         q = torch.as_tensor(queries[:B], device=dev)
-        for k in (1, 20, 256):
+        for k in scan_ks():
             s_k, i_k = K.quant_dense_topk(q, codes, scales, k)
             s_p, i_p = K.quant_dense_topk_plain(q, codes, scales, k + 1)
             err, gap = compare_topk(f"B6 B={B} k={k}", s_k, i_k, s_p, i_p, k)
@@ -465,14 +521,14 @@ def check_quant_topk(dev, codes, scales, queries: np.ndarray, report: dict) -> N
     gcodes, gscales = (torch.as_tensor(x, device=dev) for x in quantize_kb(
         grid_rows(rng, 375, 64, dev).repeat(9, 1)[:3001].cpu().numpy()))
     qs = grid_rows(rng, 12, 64, dev)
-    for k in (1, 20, 256):
+    for k in scan_ks():
         s12, i12 = K.quant_dense_topk(qs, gcodes, gscales, k)
         s1, i1 = K.quant_dense_topk(qs[:1].contiguous(), gcodes, gscales, k)
         sp, ip = K.quant_dense_topk_plain(qs, gcodes, gscales, k)
         check(torch.equal(s12, sp) and torch.equal(i12, ip), f"B6 grid k={k}")
         check(torch.equal(s1, s12[:1]) and torch.equal(i1, i12[:1]), f"B6 B=1 vs 12 k={k}")
-    print("B6 grid KB N=3001 d=64 (tie-heavy), k in {1, 20, 256}: kernel == plain byte "
-          "for byte, B=1 rows == B=12 rows")
+    print(f"B6 grid KB N=3001 d=64 (tie-heavy), k in {set(scan_ks())}: kernel == plain "
+          f"byte for byte, B=1 rows == B=12 rows")
 
 
 # ---------------------------------------------------------------------------------
@@ -723,6 +779,8 @@ def main(argv) -> int:
     # the tensors the serving paths scan: the fp32 KB, the int8 codes and scales
     check_gathered(dev, fp32._kb, qb._codes, qb._scales, ivf, queries[:12], report)
     check_quant_topk(dev, qb._codes, qb._scales, queries, report)
+    if takes_any_d_and_k():
+        check_any_d(dev)
     check_counts = read_counts()
     if args.src:
         print(json.dumps({"phase3": report}))
@@ -780,6 +838,8 @@ def main(argv) -> int:
                  "library_device_ms": r["library_device_ms"],
                  "library_call_ms": r["library_call_ms"],
                  "library_call": LIBRARY_CALLS[name], "shape": r["shape"]}
+        if f"{name}@B=1" in report:      # the gathered scans at RaLMSeq's B=1, per k
+            entry["at_B1"] = report[f"{name}@B=1"]
         if name in ("gathered_topk", "quant_gathered_topk"):
             # no serving route in either package: its launches are phase 3's
             entry["launches"] = check_counts[name]

@@ -15,18 +15,18 @@ resident KB by id (``fused_*``: B4, B7) or a pre-gathered (B, C, d) slab (B5,
 B8); fp32 rows, or int8 codes whose per-row fp32 scale multiplies the finished
 score (``quant_*``: B7, B8). Each wrapper runs the CUDA kernel on CUDA tensors
 and its plain PyTorch version (``*_plain``) on CPU tensors. ``launches``
-counts kernel launches per wrapper.
+counts kernel launches per wrapper. The kernels take any d (q and rows
+zero-padded to a multiple of 4 fp32 or 16 int8 elements) and any k >= 1
+(k > 256: a key pass and a select pass); their scratch is
+``dense_topk.scan_scratch(..., per_query=True)``.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dense_topk import MAX_K, NEG
+from repro_torch.kernels.dense_topk import NEG, launch, pad_d
 
-MAX_D = 8192           # q is staged in shared memory (d * 4 bytes)
 launches = dict.fromkeys(("fused_gathered_topk", "gathered_topk",
                           "quant_fused_gathered_topk", "quant_gathered_topk"), 0)
 
@@ -81,20 +81,6 @@ def quant_fused_gathered_topk_plain(queries, codes, scales, cand, k: int):
     return _topk_of_scores(s, cand, k, real)
 
 
-def _split_cols() -> int:
-    fn = _build.library("gathered_topk").gathered_topk_split_cols
-    fn.argtypes, fn.restype = [], ctypes.c_int
-    return fn()
-
-
-def scratch_keys(B: int, C: int, k: int) -> int:
-    """Sort keys (8 bytes each) a kernel call allocates: each of the
-    n = ceil(C / split) column splits' partial lists of k keys, plus room for
-    the merge levels' lists."""
-    n = -(-C // _split_cols())
-    return B * k * (n + -(-n // 8))
-
-
 def _scan(name: str, queries, rows, scales, cand, k: int, row_dtype, plain):
     """The body every wrapper shares: checks, then the plain version for CPU
     tensors or the kernel for CUDA tensors."""
@@ -107,36 +93,20 @@ def _scan(name: str, queries, rows, scales, cand, k: int, row_dtype, plain):
     tensors = [queries, rows, cand] + ([] if scales is None else [scales])
     if _build.on_cpu(name, *tensors):
         return plain()
-    B, d = queries.shape
-    C = cand.shape[1]
-    if k > MAX_K:
-        raise ValueError(f"{name}: the kernel takes k <= {MAX_K}, got {k}")
-    vec = 16 // rows.element_size()          # elements per 16-byte load
-    if d % vec or d > MAX_D:
-        raise ValueError(f"{name}: the kernel takes d % {vec} == 0 and "
-                         f"d <= {MAX_D}, got d={d}")
+    B, C = cand.shape
     _build.check_kernel_inputs(name, torch.float32, queries,
                                *([] if scales is None else [scales]))
     _build.check_kernel_inputs(name, row_dtype, rows)
     _build.check_kernel_inputs(name, torch.int32, cand)
+    vec = 16 // rows.element_size()          # elements per 16-byte copy
+    queries, rows = pad_d(queries, vec), pad_d(rows, vec)
+    d = queries.shape[1]
     fused = name.startswith(("fused", "quant_fused"))
-    fn = getattr(_build.library("gathered_topk"), f"{name}_launch")
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * (6 if scales is None else 7) + [i] * (5 if fused else 4)
-                       + [p])
-        fn.restype = i
-    dev = queries.device
-    partial = torch.empty((scratch_keys(B, C, k),), dtype=torch.int64, device=dev)
-    scores = torch.empty((B, k), dtype=torch.float32, device=dev)
-    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    ptrs = [t.data_ptr() for t in (queries, rows, scales, cand, partial, scores, ids)
-            if t is not None]
     sizes = (B, rows.shape[0], C, d, k) if fused else (B, C, d, k)
-    rc = fn(*ptrs, *sizes, _build.stream_ptr(dev))
+    ins = [t for t in (queries, rows, scales, cand) if t is not None]
+    out = launch("gathered_topk", f"{name}_launch", ins, sizes, B, C, k, per_query=True)
     launches[name] += 1
-    _build.check(rc, name)
-    return scores, ids
+    return out
 
 
 def fused_gathered_topk(queries, kb, cand, k: int):

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dense_topk import check_scan_args, launch_scan
+from repro_torch.kernels.dense_topk import launch, pad_d
 
 launches = 0
 
@@ -39,15 +39,16 @@ def quant_dense_topk(queries: torch.Tensor, codes: torch.Tensor,
             or scales.shape != codes.shape[:1]:
         raise ValueError(f"quant_dense_topk: shapes {tuple(queries.shape)} x "
                          f"{tuple(codes.shape)}, scales {tuple(scales.shape)}")
-    B, d = queries.shape
+    B = queries.shape[0]
     N = codes.shape[0]
     if not 1 <= k <= N:
         raise ValueError(f"quant_dense_topk: k={k} outside [1, N={N}]")
     if _build.on_cpu("quant_dense_topk", queries, codes, scales):
         return quant_dense_topk_plain(queries, codes, scales, k)
-    check_scan_args("quant_dense_topk", d, k, 16)
     _build.check_kernel_inputs("quant_dense_topk", torch.float32, queries, scales)
     _build.check_kernel_inputs("quant_dense_topk", torch.int8, codes)
-    out = launch_scan("quant_topk_launch", (queries, codes, scales), B, N, d, k)
+    queries, codes = pad_d(queries, 16), pad_d(codes, 16)
+    out = launch("dense_topk", "quant_topk_launch", (queries, codes, scales),
+                 (B, N, codes.shape[1], k), B, N, k)
     launches += 1
     return out

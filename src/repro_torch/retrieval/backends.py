@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import gathered_topk as GT
-from repro_torch.kernels.dense_topk import dense_topk
+from repro_torch.kernels.dense_topk import (MAX_K, dense_topk, pad_d, scan_scratch,
+                                           sm_count)
 from repro_torch.kernels.quant_topk import quant_dense_topk
 
 BACKENDS = ("numpy", "kernel", "int8", "int8-kernel")
@@ -284,10 +285,10 @@ def _to_device(array: np.ndarray, dtype, device) -> torch.Tensor:
 
 def _kernel_scratch_bytes(device, B: int, C: int, k: int, row_bytes: int) -> int:
     """Bytes one gathered kernel-wrapper call allocates beyond its inputs and
-    outputs: on CUDA the partial-list sort keys (8 bytes each); on the CPU the
+    outputs: on CUDA the scan's sort keys (8 bytes each); on the CPU the
     plain version's gathered rows, cast to fp32 ((B, C, d) x 4 bytes)."""
     if device.type == "cuda":
-        return 8 * GT.scratch_keys(B, C, min(k, C))
+        return scan_scratch(B, C, min(k, C), sm_count(device), per_query=True)[1]
     return B * C * row_bytes
 
 
@@ -298,9 +299,12 @@ class TorchKernelBackend(_JitShapeMixin):
     the scan itself; each call moves only the (B, d) queries (and the (B, C)
     candidate ids) to the device and the (B, k) results back. On a CPU device
     the kernel wrappers run their plain PyTorch versions (same results on the
-    grid-quantized KBs the tests use). ``cold_shape`` flags the first call
-    per shape like the reference's jit cache: on the card that call also
-    pays the kernel library's load."""
+    grid-quantized KBs the tests use). The KB is zero-padded to a multiple
+    of 4 columns at upload and each call's queries alike, which the kernels'
+    16-byte copies need; a zero pair adds exactly 0 to every score, so any d
+    is served without a per-call copy of the KB. ``cold_shape`` flags the
+    first call per shape like the reference's jit cache: on the card that
+    call also pays the kernel library's load."""
 
     name = "kernel"
     exact = True
@@ -308,21 +312,23 @@ class TorchKernelBackend(_JitShapeMixin):
     def __init__(self, embeddings: np.ndarray, device=None):
         from repro_torch import resolve_device
         self.device = resolve_device(device)
-        self._kb = _to_device(embeddings, np.float32, self.device)
+        self._kb = pad_d(_to_device(embeddings, np.float32, self.device), 4)
+        self._d = embeddings.shape[1]
         self.kb_bytes = self._kb.numel() * self._kb.element_size()
         self.calls = 0
         self._init_shapes(self._kb.shape[0])
 
-    def gathered_scratch_bytes(self, B: int, C: int, k: int = GT.MAX_K) -> int:
+    def gathered_scratch_bytes(self, B: int, C: int, k: int = MAX_K) -> int:
         """What one ``search_gathered`` call's kernel wrapper allocates at
-        this k (default: the largest the kernel takes)."""
+        this k (default: the largest k of the kernels' fast path, the most
+        a serving call asks for)."""
         return _kernel_scratch_bytes(self.device, B, C, k, self._kb.shape[1] * 4)
 
     def pregathered_scratch_bytes(self, B: int, C: int) -> int:
-        return B * C * self._kb.shape[1] * 4
+        return B * C * self._d * 4
 
     def search(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        q = _to_device(queries, np.float32, self.device)
+        q = pad_d(_to_device(queries, np.float32, self.device), 4)
         # same k > N clamp as the other backends: identical (B, min(k, N))
         # results everywhere
         scores, ids = dense_topk(q, self._kb, min(k, self._kb.shape[0]))
@@ -331,7 +337,7 @@ class TorchKernelBackend(_JitShapeMixin):
 
     def search_gathered(self, queries: np.ndarray, cand: np.ndarray,
                         k: int) -> Tuple[np.ndarray, np.ndarray]:
-        q = _to_device(queries, np.float32, self.device)
+        q = pad_d(_to_device(queries, np.float32, self.device), 4)
         c = _to_device(cand, np.int32, self.device)
         scores, ids = GT.fused_gathered_topk(q, self._kb, c, min(k, cand.shape[1]))
         self.calls += 1
@@ -387,7 +393,9 @@ class TorchQuantizedKernelBackend(_JitShapeMixin):
     :func:`quantize_kb` are put on ``device`` ONCE here. EDR runs the int8
     scan (B6), which reads a quarter of the fp32 KB's bytes; the ADR probe
     runs the int8 fused gathered scan (B7), which gathers each candidate's
-    codes and scale by id. Inexact by contract, like
+    codes and scale by id. The codes are zero-padded to a multiple of 16
+    columns at upload (the queries per call), as the fp32 KB is to 4 in
+    :class:`TorchKernelBackend`. Inexact by contract, like
     :class:`QuantizedFlatBackend`, whose results it equals."""
 
     name = "int8-kernel"
@@ -397,22 +405,24 @@ class TorchQuantizedKernelBackend(_JitShapeMixin):
         from repro_torch import resolve_device
         self.device = resolve_device(device)
         codes, scales = quantize_kb(embeddings)
-        self._codes = _to_device(codes, np.int8, self.device)
+        self._codes = pad_d(_to_device(codes, np.int8, self.device), 16)
         self._scales = _to_device(scales, np.float32, self.device)
-        self.kb_bytes = codes.nbytes + scales.nbytes
+        self._d = codes.shape[1]
+        self.kb_bytes = self._codes.numel() + scales.nbytes     # resident, padded
         self.calls = 0
         self._init_shapes(codes.shape[0])
 
-    def gathered_scratch_bytes(self, B: int, C: int, k: int = GT.MAX_K) -> int:
+    def gathered_scratch_bytes(self, B: int, C: int, k: int = MAX_K) -> int:
         """What one ``search_gathered`` call's kernel wrapper allocates at
-        this k (default: the largest the kernel takes)."""
+        this k (default: the largest k of the kernels' fast path, the most
+        a serving call asks for)."""
         return _kernel_scratch_bytes(self.device, B, C, k, self._codes.shape[1] * 4)
 
     def pregathered_scratch_bytes(self, B: int, C: int) -> int:
-        return B * C * (self._codes.shape[1] + 4)
+        return B * C * (self._d + 4)
 
     def search(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        q = _to_device(queries, np.float32, self.device)
+        q = pad_d(_to_device(queries, np.float32, self.device), 16)
         scores, ids = quant_dense_topk(q, self._codes, self._scales,
                                        min(k, self._codes.shape[0]))
         self.calls += 1
@@ -420,7 +430,7 @@ class TorchQuantizedKernelBackend(_JitShapeMixin):
 
     def search_gathered(self, queries: np.ndarray, cand: np.ndarray,
                         k: int) -> Tuple[np.ndarray, np.ndarray]:
-        q = _to_device(queries, np.float32, self.device)
+        q = pad_d(_to_device(queries, np.float32, self.device), 16)
         c = _to_device(cand, np.int32, self.device)
         scores, ids = GT.quant_fused_gathered_topk(q, self._codes, self._scales, c,
                                                    min(k, cand.shape[1]))

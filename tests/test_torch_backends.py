@@ -186,16 +186,41 @@ def test_int8_recall_contract_on_kb_grid(kind, make_kb, backend):
 
 def test_gathered_scratch_accounting():
     """The kernel backends report what their wrapper allocates: on the CPU
-    the plain version's fp32 (B, C, d) gather; the pre-gathered baseline is
-    the slab at the resident dtype."""
-    emb = _grid(np.random.default_rng(1), 64, 16)
-    kern = TorchKernelBackend(emb, device="cpu")
-    quant = TorchQuantizedKernelBackend(emb, device="cpu")
-    assert kern.gathered_scratch_bytes(3, 40) == quant.gathered_scratch_bytes(3, 40) \
-        == 3 * 40 * 16 * 4
-    assert kern.pregathered_scratch_bytes(3, 40) == 3 * 40 * 16 * 4
-    assert quant.pregathered_scratch_bytes(3, 40) == 3 * 40 * (16 + 4)
-    assert quant.kb_bytes == 64 * 16 + 64 * 4
+    the plain version's fp32 (B, C, d) gather over the resident rows, which
+    are zero-padded to a multiple of 4 (fp32) or 16 (int8) columns at
+    upload; the pre-gathered baseline is the slab at the KB's own width and
+    the resident dtype; kb_bytes is what is resident."""
+    for d, d4, d16 in ((16, 16, 16), (50, 52, 64)):
+        emb = _grid(np.random.default_rng(1), 64, d)
+        kern = TorchKernelBackend(emb, device="cpu")
+        quant = TorchQuantizedKernelBackend(emb, device="cpu")
+        assert kern.gathered_scratch_bytes(3, 40) == 3 * 40 * d4 * 4
+        assert quant.gathered_scratch_bytes(3, 40) == 3 * 40 * d16 * 4
+        assert kern.pregathered_scratch_bytes(3, 40) == 3 * 40 * d * 4
+        assert quant.pregathered_scratch_bytes(3, 40) == 3 * 40 * (d + 4)
+        assert kern.kb_bytes == 64 * d4 * 4 and quant.kb_bytes == 64 * d16 + 64 * 4
+
+
+@pytest.mark.parametrize("d", [6, 50])
+def test_kernel_backends_serve_any_d_and_k(d):
+    """C1: the kernel backends take any d (KB padded once at upload, queries
+    per call) and any k: on the CPU (the kernels' plain versions) at d = 6
+    and 50, k = 20, 300 and N, they equal the reference's numpy backends
+    byte for byte, the full scans and the gathered scans."""
+    rng = np.random.default_rng(d)
+    n = 3000
+    emb = _tie_heavy(rng, n, d)
+    ref, kern = RefFlat(emb), TorchKernelBackend(emb, device="cpu")
+    qref, qkern = RefQuantFlat(emb), TorchQuantizedKernelBackend(emb, device="cpu")
+    qs = _grid(rng, 3, d)
+    cand = _ragged_cand(rng, 3, 700, n).astype(np.int64)
+    for k in (20, 300, n):
+        for want, got in ((ref.search(qs, k), kern.search(qs, k)),
+                          (qref.search(qs, k), qkern.search(qs, k)),
+                          (ref.search_gathered(qs, cand, k), kern.search_gathered(qs, cand, k)),
+                          (qref.search_gathered(qs, cand, k),
+                           qkern.search_gathered(qs, cand, k))):
+            assert np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1]), k
 
 
 def test_make_backend_and_retriever():

@@ -212,35 +212,157 @@ def test_gathered_and_int8_backends_on_cuda_match_numpy(cuda):
                           (qflat.search_gathered(qs, cand, k),
                            qkern.search_gathered(qs, cand, k))):
             assert np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1])
-    assert kern.gathered_scratch_bytes(12, 700, 20) == 8 * GT.scratch_keys(12, 700, 20)
+    assert kern.gathered_scratch_bytes(12, 700, 20) == \
+        DT.scan_scratch(12, 700, 20, DT.sm_count(kern.device), per_query=True)[1]
 
 
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
-    kb = torch.zeros((300, 6), device=cuda)
-    with pytest.raises(ValueError, match="d % 4"):
-        DT.dense_topk(torch.zeros((1, 6), device=cuda), kb, 1)
-    with pytest.raises(ValueError, match="k <= 256"):
-        DT.dense_topk(torch.zeros((1, 8), device=cuda),
-                      torch.zeros((300, 8), device=cuda), 257)
+    """What the kernels still refuse: non-contiguous input, a wrong dtype,
+    an attention head width they were not built for. Any d and any k <= N
+    (<= C, or more, for the gathered scans) are taken."""
     with pytest.raises(ValueError, match="contiguous"):
         DT.dense_topk(torch.zeros((8, 2), device=cuda).T,
+                      torch.zeros((300, 8), device=cuda), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        QT.quant_dense_topk(torch.zeros((1, 16), device=cuda),
+                            torch.zeros((16, 300), dtype=torch.int8, device=cuda).T,
+                            torch.ones(300, device=cuda), 1)
+    with pytest.raises(TypeError, match="float32"):
+        DT.dense_topk(torch.zeros((1, 8), dtype=torch.float64, device=cuda),
                       torch.zeros((300, 8), device=cuda), 1)
     q = torch.zeros((1, 2, 32), device=cuda)
     kc = torch.zeros((1, 8, 2, 32), device=cuda)
     with pytest.raises(ValueError, match="hd in"):
         DA.decode_attention(q, kc, kc, torch.ones(1, dtype=torch.int32, device=cuda))
     cand = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="d % 16"):
+    with pytest.raises(TypeError, match="int8"):
         GT.quant_fused_gathered_topk(torch.zeros((1, 8), device=cuda),
-                                     torch.zeros((30, 8), dtype=torch.int8, device=cuda),
+                                     torch.zeros((30, 8), device=cuda),
                                      torch.ones(30, device=cuda), cand, 1)
     with pytest.raises(TypeError, match="int32"):
         GT.fused_gathered_topk(torch.zeros((1, 8), device=cuda),
                                torch.zeros((30, 8), device=cuda), cand.long(), 1)
-    with pytest.raises(ValueError, match="k <= 256"):
-        QT.quant_dense_topk(torch.zeros((1, 16), device=cuda),
-                            torch.zeros((300, 16), dtype=torch.int8, device=cuda),
-                            torch.ones(300, device=cuda), 257)
+    with pytest.raises(ValueError, match="contiguous"):
+        GT.gathered_topk(torch.zeros((1, 8), device=cuda),
+                         torch.zeros((8, 4, 1), device=cuda).permute(2, 1, 0), cand, 1)
+
+
+def _counts():
+    return (DT.launches, QT.launches, dict(GT.launches))
+
+
+@pytest.mark.parametrize("d", [6, 50])
+def test_kernel_backends_serve_any_d_and_k_on_cuda(cuda, d):
+    """C1: both CUDA backends at d in {6, 50}, B=3, over a 3000-row KB, at
+    k = 20, 300 and N, equal FlatBackend / QuantizedFlatBackend byte for
+    byte (full scans and gathered scans), and every call launched its
+    kernel (no plain version ran on the card)."""
+    rng = np.random.default_rng(d)
+    N = 3000
+    emb = _tie_heavy(rng, N, d)
+    flat, kern = FlatBackend(emb), TorchKernelBackend(emb, device=cuda)
+    qflat, qkern = QuantizedFlatBackend(emb), TorchQuantizedKernelBackend(emb, device=cuda)
+    assert kern._kb.shape[1] % 4 == 0 and qkern._codes.shape[1] % 16 == 0
+    qs = _grid(rng, 3, d)
+    cand = _ragged_cand(rng, 3, 700, N).astype(np.int64)
+    for k in (20, 300, N):
+        for want, call, kernel in (
+                (flat.search(qs, k), lambda: kern.search(qs, k), "dense"),
+                (qflat.search(qs, k), lambda: qkern.search(qs, k), "quant"),
+                (flat.search_gathered(qs, cand, k), lambda: kern.search_gathered(qs, cand, k),
+                 "fused_gathered_topk"),
+                (qflat.search_gathered(qs, cand, k), lambda: qkern.search_gathered(qs, cand, k),
+                 "quant_fused_gathered_topk")):
+            before = _counts()
+            got = call()
+            after = _counts()
+            launched = {"dense": after[0] - before[0], "quant": after[1] - before[1]}
+            launched.update({n: after[2][n] - before[2][n] for n in GT.launches})
+            assert launched[kernel] == 1, (kernel, k)
+            assert np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1]), (kernel, k)
+
+
+@pytest.mark.parametrize("N,k", [(3001, 257), (3001, 300), (3001, 3001), (40_000, 40_000)])
+@pytest.mark.parametrize("B", [1, 5, 20])
+def test_scan_kernels_take_k_past_256(cuda, N, k, B):
+    """B1 and B6 above the lists' k: the key pass and the select pass equal
+    the plain versions byte for byte on a tie-heavy grid KB (k = N = 40,000
+    sorts in device memory), at d = 50 (padded) and 64."""
+    rng = np.random.default_rng(N + k + B)
+    for d in (50, 64):
+        emb = _tie_heavy(rng, N, d)
+        kb = torch.from_numpy(emb).to(cuda)
+        codes, scales = (torch.from_numpy(a).to(cuda) for a in quantize_kb(emb))
+        q = torch.from_numpy(_grid(rng, B, d)).to(cuda)
+        before = (DT.launches, QT.launches)
+        got = DT.dense_topk(q, kb, k)
+        want = DT.dense_topk_plain(q, kb, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        got = QT.quant_dense_topk(q, codes, scales, k)
+        want = QT.quant_dense_topk_plain(q, codes, scales, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert (DT.launches, QT.launches) == (before[0] + 1, before[1] + 1)
+
+
+def _gathered_args(q, kb, codes, scales, cand):
+    safe = cand.clamp(min=0).long()
+    return {"fused_gathered_topk": (q, kb, cand),
+            "gathered_topk": (q, kb[safe].contiguous(), cand),
+            "quant_fused_gathered_topk": (q, codes, scales, cand),
+            "quant_gathered_topk": (q, codes[safe].contiguous(),
+                                    scales[safe].contiguous(), cand)}
+
+
+@pytest.mark.parametrize("d,C,k", [(50, 1300, 20), (50, 1300, 300), (64, 1300, 1300),
+                                   (50, 1300, 1500), (6, 20_000, 20_000)])
+def test_gathered_kernels_take_any_d_and_k(cuda, d, C, k):
+    """Every gathered wrapper at d = 50 or 6 (padded), at k > 256 (the key
+    pass and the select pass; k = C = 20,000 sorts in device memory) and at
+    k > C (pads) equals its plain version byte for byte on a tie-heavy grid
+    KB, ids past N included."""
+    rng = np.random.default_rng(d + C + k)
+    N = 3001
+    emb = _tie_heavy(rng, N, d)
+    codes, scales = (torch.from_numpy(a).to(cuda) for a in quantize_kb(emb))
+    kb = torch.from_numpy(emb).to(cuda)
+    q = torch.from_numpy(_grid(rng, 4, d)).to(cuda)
+    cand = torch.from_numpy(_ragged_cand(rng, 4, C, N)).to(cuda)
+    past_n = cand.clone()                  # for the fused scans only: the slabs
+    past_n[1, :3] = torch.tensor([N, N + 5, 10**9], dtype=torch.int32, device=cuda)
+    runs = list(_gathered_args(q, kb, codes, scales, cand).items()) + [
+        ("fused_gathered_topk", (q, kb, past_n)),
+        ("quant_fused_gathered_topk", (q, codes, scales, past_n))]
+    for name, a in runs:
+        before = GT.launches[name]
+        got = getattr(GT, name)(*a, k)
+        want = getattr(GT, f"{name}_plain")(*a, k)
+        assert GT.launches[name] == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+
+
+@pytest.mark.parametrize("k", [1, 20, 300])
+def test_gathered_rows_do_not_depend_on_the_batch(cuda, k):
+    """On unit-normal data (where the summation order shows) a query's row
+    from the B=12 call equals its row from a B=1 call byte for byte, for
+    each of B4, B5, B7, B8, and the scores are within 1e-5 of the plain
+    versions'."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    N, C, d = 20_000, 4000, 768
+    kb = torch.randn((N, d), generator=g, device=cuda)
+    kb /= kb.norm(dim=1, keepdim=True)
+    codes, scales = (torch.from_numpy(a).to(cuda) for a in quantize_kb(kb.cpu().numpy()))
+    q = torch.randn((12, d), generator=g, device=cuda)
+    q /= q.norm(dim=1, keepdim=True)
+    rng = np.random.default_rng(k)
+    cand = torch.from_numpy(_ragged_cand(rng, 12, C, N)).to(cuda)
+    for name, a in _gathered_args(q, kb, codes, scales, cand).items():
+        s12, i12 = getattr(GT, name)(*a, k)
+        torch.testing.assert_close(s12, getattr(GT, f"{name}_plain")(*a, k)[0], rtol=0,
+                                   atol=1e-5)
+        for b in range(12):
+            one = tuple(t[b:b + 1].contiguous() if t.shape[0] == 12 else t for t in a)
+            s1, i1 = getattr(GT, name)(*one, k)
+            assert torch.equal(s1[0], s12[b]) and torch.equal(i1[0], i12[b]), (name, b)
 
 
 def test_kernel_launches_capture_in_a_cuda_graph(cuda):

@@ -86,17 +86,46 @@ def test_dense_topk_rejects_bad_k():
 
 
 @pytest.mark.parametrize("B", [1, 12, 64])
-@pytest.mark.parametrize("k", [1, 20, 256])
+@pytest.mark.parametrize("k", [1, 20, 256, 257, 20_000])
 @pytest.mark.parametrize("N", [1, 255, 256, 257, 33_792, 500_000])
 def test_scan_scratch_follows_the_list_count(B, k, N):
-    """B1/B6 scratch: one partial list of k keys per query from each scan CTA
-    (one per SM, none without a 256-row tile), plus the merge's room."""
+    """B1/B6 scratch: for k <= 256 one partial list of k keys per query from
+    each scan CTA (one per SM, none without a 256-row tile), plus the merge's
+    room; above it every row's key, plus a device-memory sort region when
+    the top k (rounded up to a power of two) passes 16384 keys."""
     for sms in (132, 7):
         lists, nbytes = DT.scan_scratch(B, N, k, sms)
         assert lists == max(1, min(-(-N // DT.TILE_ROWS), sms))
         assert 1 <= lists <= sms and (lists - 1) * DT.TILE_ROWS < N
-        assert nbytes == 8 * B * k * (lists + -(-lists // 8))
+        if k <= DT.MAX_K:
+            assert nbytes == 8 * B * k * (lists + -(-lists // 8))
+        else:
+            P = 1 << (min(k, N) - 1).bit_length()
+            assert P >= min(k, N) and nbytes == 8 * B * (N + (P if P > 16384 else 0))
     assert DT.scan_scratch(B, N, k, 132)[0] == (132 if N > 131 * 256 else -(-N // 256))
+
+
+@pytest.mark.parametrize("B,C,k", [(1, 62_500, 1), (1, 62_500, 20), (12, 62_500, 20),
+                                   (12, 700, 256), (64, 62_500, 1), (200, 1300, 20),
+                                   (3, 1300, 300), (2, 40_000, 40_000)])
+def test_gathered_scratch_shares_the_sms_among_queries(monkeypatch, B, C, k):
+    """B4/B5/B7/B8 scratch is computed in Python without the library: the
+    CTAs, two per SM, are shared among the B queries, with at most two
+    256-column tiles each (none without a tile), the lists and keys as the
+    full scans'."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "library", lambda name: pytest.fail("loaded the library"))
+    lists, nbytes = DT.scan_scratch(B, C, k, 132, per_query=True)
+    tiles = -(-C // 256)
+    assert lists == max(1, min(tiles, max(264 // B, -(-tiles // 2))))
+    assert -(-tiles // lists) <= 2 and (lists - 1) * 256 < C
+    if k <= DT.MAX_K:
+        assert nbytes == 8 * B * k * (lists + -(-lists // 8))
+    else:
+        P = 1 << (min(k, C) - 1).bit_length()
+        assert nbytes == 8 * B * (C + (P if P > 16384 else 0))
+    if (B, C) == (1, 62_500):
+        assert lists == 245               # RaLMSeq's probe: one tile per CTA
 
 
 def _kernel_path(monkeypatch):
@@ -107,23 +136,73 @@ def _kernel_path(monkeypatch):
     monkeypatch.setattr(_build, "library", lambda name: pytest.fail("reached the launch"))
 
 
+def _record_launches(monkeypatch):
+    """Make the scan wrappers take their kernel path on CPU tensors and
+    record each launch (entry, input shapes, int sizes, k) instead of
+    making it."""
+    from repro_torch.kernels import _build
+    calls = []
+
+    def launch(lib, entry, tensors, sizes, B, ncols, k, per_query=False):
+        calls.append((entry, [tuple(t.shape) for t in tensors], tuple(sizes), k))
+        return torch.zeros((B, k)), torch.zeros((B, k), dtype=torch.int32)
+    monkeypatch.setattr(_build, "on_cpu", lambda *_: False)
+    for mod in (DT, QT, GT):
+        monkeypatch.setattr(mod, "launch", launch)
+    return calls
+
+
 @pytest.mark.parametrize("case", ["k", "d", "dtype", "contiguous"])
 def test_scan_wrappers_refuse_what_the_kernel_does_not_take(monkeypatch, case):
-    """B1 and B6 refuse k > 256, d not a multiple of 4 (B1) or 16 (B6), a
-    wrong dtype and non-contiguous input before any launch."""
-    _kernel_path(monkeypatch)
+    """B1 and B6 refuse a wrong dtype and non-contiguous input before any
+    launch. They take k > 256 (the key pass and the select pass) and any d:
+    queries and rows reach the launch zero-padded to a multiple of the
+    16-byte copy (4 fp32, 16 int8 elements)."""
+    calls = _record_launches(monkeypatch)
     d, k = (6 if case == "d" else 16), (257 if case == "k" else 4)
     q = torch.zeros((2, d), dtype=torch.float64 if case == "dtype" else torch.float32)
     kb = torch.zeros((300, d))
     codes = torch.zeros((300, d + 2 if case == "d" else d), dtype=torch.int8)
     if case == "contiguous":
         kb, codes = torch.zeros((d, 300)).T, torch.zeros((d, 300), dtype=torch.int8).T
-    err = TypeError if case == "dtype" else ValueError
-    with pytest.raises(err):
-        DT.dense_topk(q, kb, k)
     qq = torch.zeros((2, codes.shape[1]), dtype=q.dtype)
-    with pytest.raises(err):
-        QT.quant_dense_topk(qq, codes, torch.ones(300), k)
+    if case in ("dtype", "contiguous"):
+        err = TypeError if case == "dtype" else ValueError
+        with pytest.raises(err):
+            DT.dense_topk(q, kb, k)
+        with pytest.raises(err):
+            QT.quant_dense_topk(qq, codes, torch.ones(300), k)
+        assert calls == []
+        return
+    DT.dense_topk(q, kb, k)
+    QT.quant_dense_topk(qq, codes, torch.ones(300), k)
+    d4, d16 = (8, 16) if case == "d" else (16, 16)
+    assert calls == [("dense_topk_launch", [(2, d4), (300, d4)], (2, 300, d4, k), k),
+                     ("quant_topk_launch", [(2, d16), (300, d16), (300,)], (2, 300, d16, k), k)]
+
+
+@pytest.mark.parametrize("d,k", [(50, 20), (64, 300), (6, 1300)])
+def test_gathered_wrappers_pad_d_and_take_any_k(monkeypatch, d, k):
+    """The four gathered wrappers reach their launch with q and rows
+    zero-padded to a multiple of 4 (fp32) or 16 (int8) elements, and at any
+    k >= 1 (k > 256: the key pass and the select pass; k > C: pads)."""
+    calls = _record_launches(monkeypatch)
+    B, C, N = 3, 1300, 3001
+    q, cand = torch.zeros((B, d)), torch.zeros((B, C), dtype=torch.int32)
+    GT.fused_gathered_topk(q, torch.zeros((N, d)), cand, k)
+    GT.gathered_topk(q, torch.zeros((B, C, d)), cand, k)
+    GT.quant_fused_gathered_topk(q, torch.zeros((N, d), dtype=torch.int8), torch.ones(N), cand, k)
+    GT.quant_gathered_topk(q, torch.zeros((B, C, d), dtype=torch.int8), torch.ones((B, C)),
+                           cand, k)
+    d4, d16 = -(-d // 4) * 4, -(-d // 16) * 16
+    assert calls == [
+        ("fused_gathered_topk_launch", [(B, d4), (N, d4), (B, C)], (B, N, C, d4, k), k),
+        ("gathered_topk_launch", [(B, d4), (B, C, d4), (B, C)], (B, C, d4, k), k),
+        ("quant_fused_gathered_topk_launch", [(B, d16), (N, d16), (N,), (B, C)],
+         (B, N, C, d16, k), k),
+        ("quant_gathered_topk_launch", [(B, d16), (B, C, d16), (B, C), (B, C)],
+         (B, C, d16, k), k)]
+    assert all(GT.launches[n] > 0 for n in GT.launches)
 
 
 @pytest.mark.parametrize("case", ["hd", "dtype", "contiguous"])
@@ -279,6 +358,41 @@ def test_fused_scans_read_no_row_past_n():
                  GT.quant_fused_gathered_topk(q, codes, scales, cand, 5)):
         assert sorted(i[0, :2].tolist()) == [3, 7] and i[0, 2:].tolist() == [50, 99, -1]
         assert (s[0, 2:] == DT.NEG).all()
+
+
+@pytest.mark.parametrize("d", [6, 50, 64])
+def test_pad_d_keeps_every_score(d):
+    """The kernels' d padding (zero columns up to a multiple of 4 fp32 or 16
+    int8 elements) changes no result: every plain version on padded queries
+    and rows equals it on the originals byte for byte, on a tie-heavy grid
+    KB, fp32 and int8, full and gathered scans; a multiple is not copied."""
+    rng = np.random.default_rng(d)
+    N, B, C = 700, 5, 300
+    kb = torch.from_numpy(_tie_heavy(rng, N, d))
+    q = torch.from_numpy(_grid(rng, B, d))
+    codes, scales = (torch.from_numpy(a) for a in quantize_kb(kb.numpy()))
+    cand = torch.from_numpy(_ragged_cand(rng, B, C, N, dup_row=0, empty_row=2))
+    safe = cand.clamp(min=0).long()
+    for m in (4, 16):
+        pq, pkb, pcodes = DT.pad_d(q, m), DT.pad_d(kb, m), DT.pad_d(codes, m)
+        assert pq.shape[1] % m == 0 and pq.shape[1] - d < m and pcodes.dtype == torch.int8
+        assert torch.equal(pq[:, :d], q) and not pq[:, d:].any() and not pcodes[:, d:].any()
+        pairs = [(DT.dense_topk_plain(q, kb, 40), DT.dense_topk_plain(pq, pkb, 40)),
+                 (QT.quant_dense_topk_plain(q, codes, scales, 40),
+                  QT.quant_dense_topk_plain(pq, pcodes, scales, 40)),
+                 (GT.fused_gathered_topk_plain(q, kb, cand, 40),
+                  GT.fused_gathered_topk_plain(pq, pkb, cand, 40)),
+                 (GT.gathered_topk_plain(q, kb[safe], cand, 40),
+                  GT.gathered_topk_plain(pq, DT.pad_d(kb[safe], m), cand, 40)),
+                 (GT.quant_fused_gathered_topk_plain(q, codes, scales, cand, 40),
+                  GT.quant_fused_gathered_topk_plain(pq, pcodes, scales, cand, 40)),
+                 (GT.quant_gathered_topk_plain(q, codes[safe], scales[safe], cand, 40),
+                  GT.quant_gathered_topk_plain(pq, DT.pad_d(codes[safe], m), scales[safe],
+                                               cand, 40))]
+        for (s0, i0), (s1, i1) in pairs:
+            assert torch.equal(s0, s1) and torch.equal(i0, i1)
+    p16 = DT.pad_d(q, 16)
+    assert DT.pad_d(p16, 4) is p16
 
 
 def test_gathered_and_quant_wrappers_reject_bad_inputs():
