@@ -14,8 +14,11 @@
    20, 256 and 300 (above 256: the key pass and the select pass); B1's rows
    at B=1 and B=12 against its B=64 rows on the serving KB, B3 at its tile
    edges; both kernel backends at d = 6 and 50 against the numpy backends
-   (any d: ROADMAP fault C1). A tree run with --src that refuses k > 256
-   and such d is checked without those shapes. Each
+   (any d: ROADMAP fault C1); B2 at the fleet's B=4 and RaLMSeq's B=1
+   shapes (warm and cold L2), a slot's B=1 row == its B=4 row byte for
+   byte, and 12 query heads per KV head at hd 128 with cache_len 0 and > W
+   (ROADMAP fault C2). A tree run with --src that refuses k > 256, such d
+   or such heads is checked without those shapes. Each
    kernel and one library call as its yardstick get two times: the device
    time (20 calls captured in a CUDA graph, the replay timed with CUDA
    events) and the per-call time (CUDA events around 5 back-to-back calls,
@@ -42,6 +45,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -238,38 +242,116 @@ def check_dense_topk(dev, N: int, d: int, report: dict) -> None:
           f"byte for byte, B=1 rows == B=12 rows; backend k=256 > N=100 == numpy")
 
 
-def check_decode_attention(dev, report: dict) -> None:
-    from repro_torch.kernels import decode_attention as K
+def takes_any_group() -> bool:
+    """Whether B2 of the tree under test takes any H / KV and answers
+    cache_len 0 with the window's mean, as the reference does (ROADMAP fault
+    C2; an older tree, run with --src, refuses H / KV > 8 and answers zeros:
+    those checks are skipped)."""
+    from repro_torch.kernels import decode_attention
+    return not hasattr(decode_attention, "MAX_GROUP")
+
+
+def decode_inputs(gen, B, W, H, KV, hd, dev):
+    return (torch.randn((B, H, hd), generator=gen, device=dev),
+            torch.randn((B, W, KV, hd), generator=gen, device=dev),
+            torch.randn((B, W, KV, hd), generator=gen, device=dev))
+
+
+def decode_bytes(lens, W: int, H: int, KV: int, hd: int) -> float:
+    """The least bytes of one B2 call: q and out, the valid keys and values
+    (a slot at cache_len <= 0 reads the window's values), the lengths."""
+    n = int(lens.clamp(max=W).sum())
+    n_mean = int((lens <= 0).sum()) * W
+    B = lens.numel()
+    return 4.0 * (2 * B * H * hd + (2 * n + n_mean) * KV * hd + B)
+
+
+def time_decode(K, q, kc, vc, lens, gen) -> dict:
+    """B2 at one shape against its plain version (2e-5), its device and call
+    times, SDPA's, the plain version's, and the bound; where a slot fills
+    the window, also the device time with a cold L2: the captured calls
+    rotate over enough distinct caches that the bytes read between two uses
+    of one cache exceed the 50 MB L2 twice over (inputs that stay in L2
+    across replays time the L2, not the HBM that a decode step of 24 layers
+    reads from)."""
     F = torch.nn.functional
+    B, H, hd = q.shape
+    W, KV = kc.shape[1], kc.shape[2]
+    out = K.decode_attention(q, kc, vc, lens)
+    ref = K.decode_attention_plain(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    check(err <= 2e-5, f"B2 B={B} H={H} KV={KV} hd={hd} lens={lens.tolist()}: {err}")
+    plain = cuda_ms(lambda: K.decode_attention_plain(q, kc, vc, lens))
+    qs = q[:, :, None]
+    ks = kc.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
+    vs = vc.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
+    mask = (torch.arange(W, device=q.device)[None] < lens[:, None])[:, None, None]
+    t = timed(lambda: K.decode_attention(q, kc, vc, lens),
+              lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+    n = int(lens.clamp(max=W).sum())
+    bms, by = bound_ms(decode_bytes(lens, W, H, KV, hd), 4.0 * n * H * hd)
+    r = dict(max_abs_err=err, plain_ms=plain, bound_ms=bms, bound_by=by,
+             shape=f"B={B} H={H} KV={KV} hd={hd} W={W} cache_len={lens.tolist()}", **t)
+    cold = ""
+    if int(lens.max()) == W:
+        per_call = decode_bytes(lens, W, H, KV, hd)
+        sets = [decode_inputs(gen, B, W, H, KV, hd, q.device)[1:]
+                for _ in range(int(np.ceil(100e6 / per_call)) + 1)]
+        turn = itertools.cycle(sets)
+
+        def rotating():
+            k_, v_ = next(turn)
+            return K.decode_attention(q, k_, v_, lens)
+        r["cold_device_ms"] = device_ms(rotating, launches=max(20, len(sets)))
+        r["cold_sets"] = len(sets)
+        cold = f"  cold L2 {r['cold_device_ms']:.4f} ms device ({len(sets)} caches)"
+    print(f"B2 decode_attention {r['shape']}: {fmt_times(t, 'SDPA')}  plain {plain:.4f} ms  "
+          f"bound {bms:.5f} ms ({by})  max abs err {err:.2e}{cold}")
+    return r
+
+
+def check_decode_attention(dev, report: dict) -> None:
+    """B2 at the fleet's B=4 shape and RaLMSeq's B=1 shapes (timed, warm and
+    cold L2 at L=512), GQA rows, a slot's B=1 row == its B=4 row byte for
+    byte, and (fault C2) 12 query heads per KV head at hd 128 with cache_len
+    0 and > W."""
+    from repro_torch.kernels import decode_attention as K
     gen = torch.Generator(device=dev).manual_seed(2)
     B, W, hd = 4, 512, 64
     lens = torch.tensor([1, 97, 300, 512], dtype=torch.int32, device=dev)
     for H, KV in ((16, 16), (16, 4)):
-        q = torch.randn((B, H, hd), generator=gen, device=dev)
-        kc = torch.randn((B, W, KV, hd), generator=gen, device=dev)
-        vc = torch.randn((B, W, KV, hd), generator=gen, device=dev)
-        out = K.decode_attention(q, kc, vc, lens)
-        ref = K.decode_attention_plain(q, kc, vc, lens)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        check(err <= 2e-5, f"B2 H={H} KV={KV}: max abs err {err}")
-        plain = cuda_ms(lambda: K.decode_attention_plain(q, kc, vc, lens))
-        qs = q[:, :, None]
-        ks = kc.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
-        vs = vc.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
-        mask = (torch.arange(W, device=dev)[None] < lens[:, None])[:, None, None]
-        t = timed(lambda: K.decode_attention(q, kc, vc, lens),
-                  lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
-        n = int(lens.clamp(max=W).sum())
-        bms, by = bound_ms(4.0 * (2 * B * H * hd + 2 * n * KV * hd + B),
-                           4.0 * n * H * hd)
-        print(f"B2 decode_attention B={B} H={H} KV={KV} hd={hd} W={W} "
-              f"cache_len={lens.tolist()}: {fmt_times(t, 'SDPA')}  plain {plain:.4f} ms  "
-              f"bound {bms:.5f} ms ({by})  max abs err {err:.2e}")
+        q, kc, vc = decode_inputs(gen, B, W, H, KV, hd, dev)
+        r = time_decode(K, q, kc, vc, lens, gen)
         if KV == H:
-            report["decode_attention"] = dict(max_abs_err=err, plain_ms=plain, bound_ms=bms,
-                                              bound_by=by, shape=f"B={B} H=KV={H} hd={hd} W={W} "
-                                                                 f"cache_len={lens.tolist()}", **t)
+            report["decode_attention"] = r
+            out = K.decode_attention(q, kc, vc, lens)
+            for b, L in enumerate(lens.tolist()):     # RaLMSeq's B=1 at the same slots
+                one = lens[b:b + 1].clone()           # 16-byte aligned
+                check(torch.equal(K.decode_attention(q[b:b + 1], kc[b:b + 1], vc[b:b + 1],
+                                                     one)[0], out[b]),
+                      f"B2 L={L}: the B=1 row != the B=4 row")
+                if L > 1:
+                    report.setdefault("decode_attention@B=1", {})[f"L={L}"] = time_decode(
+                        K, q[b:b + 1], kc[b:b + 1], vc[b:b + 1], one, gen)
+            print(f"B2 H=KV={H} hd={hd} W={W}: each slot's B=1 row == its B=4 row byte "
+                  f"for byte")
+    if not takes_any_group():
+        return
+    # C2: 12 query heads per KV head at hd 128 (command-r-plus-104b's 96 / 8),
+    # cache_len 0 (every entry masked: the mean of v over the window) and > W
+    H, KV, hd = 96, 8, 128
+    q, kc, vc = decode_inputs(gen, B, W, H, KV, hd, dev)
+    time_decode(K, q, kc, vc, lens, gen)
+    edge = torch.tensor([0, 63, 65, 600], dtype=torch.int32, device=dev)
+    out = K.decode_attention(q, kc, vc, edge)
+    err = (out - K.decode_attention_plain(q, kc, vc, edge)).abs().max().item()
+    check(err <= 2e-5, f"B2 G=12 hd=128 lens={edge.tolist()}: max abs err {err}")
+    mean = vc[0].mean(0).repeat_interleave(H // KV, 0)
+    merr = (out[0] - mean).abs().max().item()
+    check(merr <= 2e-5, f"B2 cache_len 0: max |out - mean of v| {merr}")
+    print(f"B2 G=12 hd=128 W={W} cache_len={edge.tolist()}: max abs err {err:.2e}; the "
+          f"cache_len 0 row is the window's mean of v within {merr:.2e}")
 
 
 def check_prefill_attention(dev, report: dict) -> None:
@@ -838,7 +920,9 @@ def main(argv) -> int:
                  "library_device_ms": r["library_device_ms"],
                  "library_call_ms": r["library_call_ms"],
                  "library_call": LIBRARY_CALLS[name], "shape": r["shape"]}
-        if f"{name}@B=1" in report:      # the gathered scans at RaLMSeq's B=1, per k
+        if "cold_device_ms" in r:        # B2: device time with a cold L2
+            entry["cold_device_ms"] = r["cold_device_ms"]
+        if f"{name}@B=1" in report:      # B2 and the gathered scans at RaLMSeq's B=1
             entry["at_B1"] = report[f"{name}@B=1"]
         if name in ("gathered_topk", "quant_gathered_topk"):
             # no serving route in either package: its launches are phase 3's

@@ -1,8 +1,8 @@
 // Asynchronous 16-byte copies from device memory into shared memory
 // (cp.async, sm_80 and later), the ring feed of dense_topk.cu and
-// prefill_attention.cu. A copy whose source lies outside the tensor passes
-// src_bytes = 0: nothing is read and the 16 bytes in shared memory are
-// zero-filled.
+// prefill_attention.cu, and decode_attention.cu's query tiles. A copy whose
+// source lies outside the tensor passes src_bytes = 0: nothing is read and
+// the 16 bytes in shared memory are zero-filled.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,130 +1,287 @@
-// Single-token GQA attention over a ring KV cache, online softmax in fp32.
+// Single-token GQA attention over a ring KV cache, split over fixed chunks of
+// the cache (flash-decoding), fp32 throughout.
 //
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention_pallas
 // (line 66; body _decode_attn_kernel). It computes what the reference model's
 // decode path computes with plain jnp (src/repro/models/layers.py::
 // decode_attention, line 236): out[b, h] = softmax(q[b, h] . k[b, :L] /
-// sqrt(hd)) . v[b, :L] with L = cache_len[b].
+// sqrt(hd)) . v[b, :L] with L = min(cache_len[b], W). With cache_len <= 0
+// every entry is masked, the reference's softmax weights are all equal, and
+// the output is the mean of v over the whole window W: the kernel takes
+// L = W with every score 0.
 //
 // Bound on an H100: device-memory bandwidth. A step reads each valid cache
-// slot's key and value once, 2 * sum_b(L_b) * KV * hd * 4 bytes, and does
-// 4 FLOPs per element read.
+// entry's key and value once, 2 * sum_b(L_b) * KV * hd * 4 bytes, at about
+// 0.5 FLOP per byte for G = H / KV = 1; fp32 fmaf on the CUDA cores is
+// enough (no tensor cores, no TF32).
 //
-// Design. One CTA per (KV head, slot); it serves all G = H / KV query heads of
-// its group at once, so each key and value is read once for G heads. The CTA
-// walks only the slot's first L = min(cache_len, W) ring entries: invalid
-// entries are skipped, not masked, so it reads fewer bytes than the TPU
-// kernel, which streams the whole window. hd / 4 threads share one cache entry
-// (one float4 each), so 256 threads keep 256 / (hd / 4) entries in flight; each
-// such group keeps its own running max, sum and weighted value in registers,
-// and the groups are combined once at the end in a fixed order. The result is
-// deterministic. Split-KV (flash-decoding) across CTAs is later work.
+// Design. What bounds the time is how many bytes are in flight and how long
+// the chain of dependent steps after them is, not the arithmetic. A slot's
+// valid entries are cut into fixed chunks of kChunk = 64 entries (boundaries
+// at 0, 64, 128, ...), and one CTA serves one (chunk, KV head, slot): at B=1,
+// L=512 and 16 KV heads that is 128 CTAs, where one CTA per (KV head, slot)
+// gave 16. Each warp owns 8 entries of the chunk and issues every load of
+// their keys and values into registers at once (the whole chunk is in flight
+// before the first use): a key over 4 lanes, so a score is 2 shuffles away,
+// and a value row over hd / 4 lanes, one float4 column each, so P.V needs at
+// most one shuffle. The warp then walks the G query heads of its group (q
+// from shared memory, in tiles of kHeadTile heads): score, max and sum over
+// its 8 entries and P.V, all by fixed shuffle trees, with no block barrier.
+// One barrier per tile, then a thread per (head, float4 column) merges the
+// warps in order. Entries at index >= L are never read. A slot of one chunk
+// writes its output directly. Otherwise each chunk writes its (m, l, acc) to
+// the scratch that the wrapper allocates, and the last CTA of the (KV head,
+// slot) to arrive -- a ticket counter in a per-device int32 buffer, zeroed
+// once by the wrapper and reset by that CTA -- merges the chunks in order
+// 0..n-1, loading up to kBatch chunks' partials at once. Chunk and warp
+// boundaries and the order of every sum depend only on the slot's own L and
+// on G and hd, never on B, W or which CTA finishes last: a slot's output is
+// the same bytes at any batch size, and repeated calls give the same bytes.
+// No float atomics. One launch per call, no other runtime call.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxG = 8;
+constexpr int kWarps = kThreads / 32;
+constexpr int kWarpRows = 8;                  // cache entries per warp
+constexpr int kChunk = kWarps * kWarpRows;    // cache entries per CTA
+constexpr int kHeadTile = 8;                  // query heads per pass over a chunk
+constexpr int kBatch = 8;                     // chunks whose partials the merge loads at once
+constexpr unsigned kAll = 0xffffffffu;
 constexpr float kNeg = -3.4e38f;
 
+__device__ __forceinline__ float4 fma4(float p, float4 v, float4 a) {
+  return make_float4(fmaf(p, v.x, a.x), fmaf(p, v.y, a.y), fmaf(p, v.z, a.z),
+                     fmaf(p, v.w, a.w));
+}
+
+__device__ __forceinline__ float4 div4(float4 a, float l) {
+  return make_float4(a.x / l, a.y / l, a.z / l, a.w / l);
+}
+
+// Take a ticket: an atomic add at device scope that releases this CTA's
+// partial (its writes precede the call through a __syncthreads) and
+// acquires those of the CTAs that took the earlier tickets.
+__device__ __forceinline__ int take_ticket(int* ticket) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+               : "=r"(old) : "l"(ticket) : "memory");
+  return old;
+}
+
+// registers: hd 128 keeps 16 float4 of keys and values per lane (2 CTAs an
+// SM), hd 64 keeps 8 (3 CTAs an SM)
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
 decode_attn_kernel(const float* __restrict__ q, const float* __restrict__ kc,
                    const float* __restrict__ vc, const int* __restrict__ cache_len,
-                   float* __restrict__ out, int H, int W, int KV, int G, float scale) {
-  constexpr int kLanes = HD / 4;             // threads per cache entry
-  constexpr int kGroups = kThreads / kLanes; // entries in flight per CTA
-  __shared__ float sm_m[kGroups][kMaxG];
-  __shared__ float sm_l[kGroups][kMaxG];
-  __shared__ __align__(16) float sm_acc[kGroups][kMaxG][HD];
+                   float* __restrict__ out, float* __restrict__ part,
+                   int* __restrict__ tickets, int H, int W, int KV, int G, float scale) {
+  constexpr int kVec = HD / 4;                  // float4 per cache row
+  constexpr int kKeyVec = kVec / 4;             // float4 of a key per lane (4 lanes a key)
+  constexpr int kRowsPerLoad = 32 / kVec;       // value rows one warp-wide load covers
+  constexpr int kValRows = kWarpRows / kRowsPerLoad;   // value rows per lane
+  __shared__ __align__(16) float sQ[kHeadTile][HD];
+  __shared__ __align__(16) float sAcc[kWarps][kHeadTile][HD];
+  __shared__ float sM[kWarps][kHeadTile];
+  __shared__ float sL[kWarps][kHeadTile];
+  __shared__ int s_last;
 
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, grp = tid / kLanes, lane = tid % kLanes;
-  const int L = max(0, min(cache_len[b], W));
+  const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int len = cache_len[b];
+  const bool uniform = len <= 0;                // every entry masked: equal weights
+  const int L = uniform ? W : min(len, W);
+  const int t0 = c * kChunk;
+  if (t0 >= L) return;
+  const int n = (L + kChunk - 1) / kChunk;      // this slot's chunks
+  const int valid = min(kChunk, L - t0);        // entries of this chunk
+  const int nw = (valid + kWarpRows - 1) / kWarpRows;  // warps that hold an entry
 
-  float4 qv[kMaxG];
-  float m[kMaxG], l[kMaxG];
-  float4 acc[kMaxG];
+  const float* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * HD;
+  auto copy_q = [&](int g0, int gn) {
+    for (int i = tid; i < gn * kVec; i += kThreads)
+      cp_async16(&sQ[0][0] + i * 4, qb + static_cast<size_t>(g0) * HD + i * 4, 16);
+    cp_async_commit();
+  };
+  copy_q(0, min(kHeadTile, G));
+
+  // this warp's entries w0 .. w0 + 7 of the chunk, every load issued here
+  const int w0 = warp * kWarpRows;
+  const int ke = lane / 4, kq = lane % 4;       // key: entry, quarter (float4 kq + 4i)
+  const int vr = lane / kVec, vx = lane % kVec; // value: first row, float4 column
+  const size_t stride = static_cast<size_t>(KV) * HD;  // floats between entries
+  const size_t base = ((static_cast<size_t>(b) * W + t0 + w0) * KV + kvh) * HD;
+  const bool key_ok = w0 + ke < valid;
+  float4 kr[kKeyVec], vv[kValRows];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    qv[g] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (g < G)
-      qv[g] = *reinterpret_cast<const float4*>(
-          q + (static_cast<size_t>(b) * H + kvh * G + g) * HD + lane * 4);
-    m[g] = kNeg;
-    l[g] = 0.0f;
-    acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < kKeyVec; ++i)
+    kr[i] = key_ok && !uniform  // equal scores read no key
+                ? *reinterpret_cast<const float4*>(kc + base + ke * stride + (kq + 4 * i) * 4)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int j = 0; j < kValRows; ++j) {
+    const int e = vr + kRowsPerLoad * j;
+    vv[j] = w0 + e < valid
+                ? *reinterpret_cast<const float4*>(vc + base + e * stride + vx * 4)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  for (int t0 = 0; t0 < L; t0 += kGroups) {  // uniform trip count per CTA
-    const int t = t0 + grp;
-    const bool active = t < L;
-    float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-    if (active) {
-      const size_t off = ((static_cast<size_t>(b) * W + t) * KV + kvh) * HD + lane * 4;
-      kv = *reinterpret_cast<const float4*>(kc + off);
-      vv = *reinterpret_cast<const float4*>(vc + off);
+  const size_t slot_row = static_cast<size_t>(b) * KV + kvh;   // (slot, KV head)
+  float* pacc = part + slot_row * nc * G * HD;                    // [nc][G][HD]
+  float* pml = part + static_cast<size_t>(gridDim.z) * KV * nc * G * HD
+               + slot_row * nc * G * 2;                           // [nc][G][2]
+
+  for (int g0 = 0; g0 < G; g0 += kHeadTile) {
+    const int gn = min(kHeadTile, G - g0);
+    if (g0 > 0) {
+      __syncthreads();                          // the last tile is done with sQ, sAcc
+      copy_q(g0, gn);
     }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    if (warp < nw) {
+      for (int g = 0; g < gn; ++g) {
+        const float4* qr = reinterpret_cast<const float4*>(sQ[g]);
+        float s = 0.0f;
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
-      float s = qv[g].x * kv.x;
-      s = fmaf(qv[g].y, kv.y, s);
-      s = fmaf(qv[g].z, kv.z, s);
-      s = fmaf(qv[g].w, kv.w, s);
+        for (int i = 0; i < kKeyVec; ++i) {
+          const float4 a = qr[kq + 4 * i];
+          s = fmaf(a.x, kr[i].x, s);
+          s = fmaf(a.y, kr[i].y, s);
+          s = fmaf(a.z, kr[i].z, s);
+          s = fmaf(a.w, kr[i].w, s);
+        }
+        s += __shfl_xor_sync(kAll, s, 1);
+        s += __shfl_xor_sync(kAll, s, 2);
+        s = key_ok ? (uniform ? 0.0f : s * scale) : kNeg;
+        // max and sum over the warp's 8 entries (lane bits 2-4)
+        float m = s;
 #pragma unroll
-      for (int o = kLanes / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (active) {
-        s *= scale;
-        const float mn = fmaxf(m[g], s);
-        const float corr = expf(m[g] - mn);
-        const float p = expf(s - mn);
-        l[g] = l[g] * corr + p;
-        acc[g].x = fmaf(p, vv.x, acc[g].x * corr);
-        acc[g].y = fmaf(p, vv.y, acc[g].y * corr);
-        acc[g].z = fmaf(p, vv.z, acc[g].z * corr);
-        acc[g].w = fmaf(p, vv.w, acc[g].w * corr);
-        m[g] = mn;
+        for (int o = 4; o < 32; o <<= 1) m = fmaxf(m, __shfl_xor_sync(kAll, m, o));
+        const float p = expf(s - m);
+        float l = p;
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) l += __shfl_xor_sync(kAll, l, o);
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int j = 0; j < kValRows; ++j)
+          acc = fma4(__shfl_sync(kAll, p, 4 * (vr + kRowsPerLoad * j)), vv[j], acc);
+#pragma unroll
+        for (int o = kVec; o < 32; o <<= 1) {   // rows split over lane groups
+          acc.x += __shfl_xor_sync(kAll, acc.x, o);
+          acc.y += __shfl_xor_sync(kAll, acc.y, o);
+          acc.z += __shfl_xor_sync(kAll, acc.z, o);
+          acc.w += __shfl_xor_sync(kAll, acc.w, o);
+        }
+        if (lane < kVec) *reinterpret_cast<float4*>(&sAcc[warp][g][vx * 4]) = acc;
+        if (lane == 0) {
+          sM[warp][g] = m;
+          sL[warp][g] = l;
+        }
+      }
+    }
+    __syncthreads();
+
+    // merge the chunk's warps in order, a thread per (head, float4 column)
+    if (tid < gn * kVec) {
+      const int g = tid / kVec, x = tid % kVec;
+      float M = kNeg;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        if (w < nw) M = fmaxf(M, sM[w][g]);
+      float lc = 0.0f;
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        if (w < nw) {
+          const float f = expf(sM[w][g] - M);
+          lc = fmaf(sL[w][g], f, lc);
+          o = fma4(f, *reinterpret_cast<const float4*>(&sAcc[w][g][x * 4]), o);
+        }
+      }
+      if (n == 1) {
+        *reinterpret_cast<float4*>(out + (static_cast<size_t>(b) * H + kvh * G + g0 + g) * HD
+                                   + x * 4) = div4(o, lc);
+      } else {
+        const size_t pg = static_cast<size_t>(c) * G + g0 + g;
+        *reinterpret_cast<float4*>(pacc + pg * HD + x * 4) = o;
+        if (x == 0) *reinterpret_cast<float2*>(pml + pg * 2) = make_float2(M, lc);
       }
     }
   }
+  if (n == 1) return;
 
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g >= G) break;
-    if (lane == 0) { sm_m[grp][g] = m[g]; sm_l[grp][g] = l[g]; }
-    *reinterpret_cast<float4*>(&sm_acc[grp][g][lane * 4]) = acc[g];
-  }
+  // the last chunk of this (KV head, slot) to finish merges all n in order
   __syncthreads();
-  for (int e = tid; e < G * HD; e += kThreads) {
-    const int g = e / HD, dim = e % HD;
-    float M = kNeg;
-    for (int j = 0; j < kGroups; ++j) M = fmaxf(M, sm_m[j][g]);
-    float lsum = 0.0f, o = 0.0f;
-    for (int j = 0; j < kGroups; ++j) {
-      const float w = expf(sm_m[j][g] - M);
-      lsum = fmaf(sm_l[j][g], w, lsum);
-      o = fmaf(sm_acc[j][g][dim], w, o);
+  if (tid == 0) s_last = take_ticket(tickets + slot_row) == n - 1;
+  __syncthreads();
+  if (!s_last) return;
+  for (int e = tid; e < G * kVec; e += kThreads) {
+    const int g = e / kVec, x = e % kVec;
+    float M = kNeg, lsum = 0.0f;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r0 = 0; r0 < n; r0 += kBatch) {    // one L2 round trip per kBatch chunks
+      float2 ml[kBatch];
+      float4 a[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        ml[i] = make_float2(kNeg, 0.0f);
+        a[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r0 + i < n) {
+          const size_t pg = static_cast<size_t>(r0 + i) * G + g;
+          ml[i] = __ldcg(reinterpret_cast<const float2*>(pml + pg * 2));
+          a[i] = __ldcg(reinterpret_cast<const float4*>(pacc + pg * HD + x * 4));
+        }
+      }
+      float Mb = M;
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) Mb = fmaxf(Mb, ml[i].x);
+      const float f = expf(M - Mb);             // rescale the earlier batches (0 at first)
+      lsum *= f;
+      o = make_float4(o.x * f, o.y * f, o.z * f, o.w * f);
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        if (r0 + i < n) {
+          const float w = expf(ml[i].x - Mb);
+          lsum = fmaf(ml[i].y, w, lsum);
+          o = fma4(w, a[i], o);
+        }
+      }
+      M = Mb;
     }
-    out[(static_cast<size_t>(b) * H + kvh * G + g) * HD + dim] = o / fmaxf(lsum, 1e-30f);
+    *reinterpret_cast<float4*>(out + (static_cast<size_t>(b) * H + kvh * G + g) * HD + x * 4) =
+        div4(o, lsum);
   }
+  if (tid == 0) tickets[slot_row] = 0;
+}
+
+template <int HD>
+int launch(const float* q, const float* k, const float* v, const int* cache_len, float* out,
+           float* part, int* tickets, int B, int H, int W, int KV, cudaStream_t stream) {
+  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  dim3 grid((W + kChunk - 1) / kChunk, KV, B);
+  decode_attn_kernel<HD><<<grid, kThreads, 0, stream>>>(q, k, v, cache_len, out, part,
+                                                        tickets, H, W, KV, H / KV, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (B, H, hd), k/v cache (B, W, KV, hd), cache_len (B,) i32 -> out (B, H, hd),
-// all f32 and contiguous. The caller guarantees hd in {64, 128}, H % KV == 0
-// and H / KV <= 8.
+// all f32 and contiguous. part: the chunks' partials, B * H * ceil(W / 64) *
+// (hd + 2) floats (unused when W <= 64); tickets: B * KV int32, zero between
+// launches (each launch leaves them zero). The caller guarantees hd in
+// {64, 128} and H % KV == 0.
 extern "C" int decode_attention_launch(const float* q, const float* k, const float* v,
-                                       const int* cache_len, float* out, int B, int H,
-                                       int W, int KV, int hd, cudaStream_t stream) {
-  const int G = H / KV;
-  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
-  dim3 grid(KV, B);
-  if (hd == 64)
-    decode_attn_kernel<64><<<grid, kThreads, 0, stream>>>(q, k, v, cache_len, out, H, W, KV, G, scale);
-  else
-    decode_attn_kernel<128><<<grid, kThreads, 0, stream>>>(q, k, v, cache_len, out, H, W, KV, G, scale);
-  return static_cast<int>(cudaGetLastError());
+                                       const int* cache_len, float* out, float* part,
+                                       int* tickets, int B, int H, int W, int KV, int hd,
+                                       cudaStream_t stream) {
+  if (hd == 64) return launch<64>(q, k, v, cache_len, out, part, tickets, B, H, W, KV, stream);
+  return launch<128>(q, k, v, cache_len, out, part, tickets, B, H, W, KV, stream);
 }

@@ -3,12 +3,21 @@
 
 Counterpart of ``repro.kernels.decode_attention.decode_attention_pallas`` and of
 the reference model's plain ``layers.decode_attention``: q (B, H, hd), k/v cache
-(B, W, KV, hd), cache_len (B,) int32 -> (B, H, hd); ring entries at index
->= cache_len are ignored. Every caller on the serving path has cache_len >= 1.
+(B, W, KV, hd), cache_len (B,) int32 -> (B, H, hd), for any H % KV == 0; ring
+entries at index >= cache_len are ignored, and cache_len > W counts as W. A
+slot with cache_len <= 0 has every entry masked, so its softmax weights are
+equal and its output is the mean of v over the whole window, as the
+reference's is. Every caller on the serving path has cache_len >= 1.
 
-:func:`decode_attention` runs the CUDA kernel on CUDA tensors and
-:func:`decode_attention_plain` on CPU tensors. ``launches`` counts kernel
-launches.
+:func:`decode_attention` runs the CUDA kernel on CUDA tensors (hd in
+{64, 128}) and :func:`decode_attention_plain` on CPU tensors. ``launches``
+counts kernel launches. The kernel splits each slot's cache into chunks of
+:data:`CHUNK` entries. The wrapper keeps, per device, the scratch for the
+chunks' partials and a zeroed ticket buffer, which each launch leaves
+zeroed; both are made (or grown) on a call, so before any CUDA-graph
+capture that the caller warms up for, and a call allocates nothing else but
+its output. Calls that share a device share that scratch, so they must not
+run concurrently on two streams; the port issues them all on one.
 """
 from __future__ import annotations
 
@@ -20,8 +29,10 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 128)
-MAX_GROUP = 8          # query heads per KV head the kernel takes
+CHUNK = 64             # cache entries per CTA (kChunk in csrc/decode_attention.cu)
+MIN_SCRATCH = 1 << 18  # ticket ints and partial floats that a device's first scratch holds
 launches = 0
+_scratch: dict = {}    # device index -> (tickets, partials, their pointers, their sizes)
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len):
@@ -43,9 +54,23 @@ def _launch_fn():
     fn = _build.library("decode_attention").decode_attention_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = i
     return fn
+
+
+def _scratch_for(device, n_tickets: int, n_partials: int):
+    """The device's ticket counters (zeroed when made) and partials scratch,
+    remade larger when a call needs more -> (tickets, partials, their data
+    pointers, their sizes)."""
+    s = _scratch.get(device.index)
+    if s is None or s[4] < n_tickets or s[5] < n_partials:
+        n_tickets, n_partials = max(n_tickets, MIN_SCRATCH), max(n_partials, MIN_SCRATCH)
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
+        part = torch.empty(n_partials, dtype=torch.float32, device=device)
+        s = _scratch[device.index] = (tickets, part, tickets.data_ptr(), part.data_ptr(),
+                                      n_tickets, n_partials)
+    return s
 
 
 def decode_attention(q, k_cache, v_cache, cache_len):
@@ -63,16 +88,17 @@ def decode_attention(q, k_cache, v_cache, cache_len):
                          f"{tuple(cache_len.shape)}")
     if _build.on_cpu("decode_attention", q, k_cache, v_cache, cache_len):
         return decode_attention_plain(q, k_cache, v_cache, cache_len)
-    if hd not in HEAD_DIMS or H // KV > MAX_GROUP:
-        raise ValueError(f"decode_attention: the kernel takes hd in {HEAD_DIMS} "
-                         f"and H/KV <= {MAX_GROUP}, got hd={hd}, H/KV={H // KV}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: the kernel takes hd in {HEAD_DIMS}, "
+                         f"got hd={hd}")
     _build.check_kernel_inputs("decode_attention", torch.float32,
                                q, k_cache, v_cache)
     _build.check_kernel_inputs("decode_attention", torch.int32, cache_len)
     out = torch.empty_like(q)
+    scratch = _scratch_for(q.device, B * KV, B * H * -(-W // CHUNK) * (hd + 2))
     rc = _launch_fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                      cache_len.data_ptr(), out.data_ptr(), B, H, W, KV, hd,
-                      _build.stream_ptr(q.device))
+                      cache_len.data_ptr(), out.data_ptr(), scratch[3], scratch[2],
+                      B, H, W, KV, hd, _build.stream_ptr(q.device))
     launches += 1
     _build.check(rc, "decode_attention")
     return out

@@ -8,7 +8,7 @@ dependencies (there the JAX conftest cannot load):
 
 Tolerances: byte equality for the dense top-k, the gathered scans and the
 int8 scan on grid-quantized KBs (every dot product exact in fp32, the int8
-scale one rounding); 2e-5 absolute for attention (fp32 online softmax in the
+scale one rounding); 2e-5 absolute for attention (fp32 chunked softmax in the
 kernel against one-shot softmax in the plain version).
 """
 import numpy as np
@@ -74,19 +74,62 @@ def test_dense_topk_kernel_matches_plain(cuda, kind, N, k):
         assert torch.equal(rows[B][0], rows[64][0][:B]) and torch.equal(rows[B][1], rows[64][1][:B])
 
 
-@pytest.mark.parametrize("H,KV,hd", [(16, 16, 64), (16, 4, 64), (8, 2, 128)])
-def test_decode_attention_kernel_matches_plain(cuda, H, KV, hd):
-    g = torch.Generator(device=cuda).manual_seed(H + KV + hd)
-    B, W = 4, 512
+def _decode_inputs(cuda, seed, lens, W, H, KV, hd):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    B = len(lens)
     q = torch.randn((B, H, hd), generator=g, device=cuda)
     kc = torch.randn((B, W, KV, hd), generator=g, device=cuda)
     vc = torch.randn((B, W, KV, hd), generator=g, device=cuda)
-    cl = torch.tensor([1, 97, 300, 512], dtype=torch.int32, device=cuda)
-    before = DA.launches
-    out = DA.decode_attention(q, kc, vc, cl)
-    assert DA.launches == before + 1
-    torch.testing.assert_close(out, DA.decode_attention_plain(q, kc, vc, cl),
-                               rtol=0, atol=2e-5)
+    return q, kc, vc, torch.tensor(lens, dtype=torch.int32, device=cuda)
+
+
+def _chunk_edges(W):
+    """cache_len 0, the chunk edges, the window, and past it."""
+    S = DA.CHUNK
+    return [0, 1, S - 1, S, S + 1, W, W + 9]
+
+
+@pytest.mark.parametrize("H,KV,hd", [(16, 16, 64), (16, 4, 64), (8, 2, 128),
+                                     (16, 16, 128), (16, 2, 64), (16, 2, 128),
+                                     (24, 2, 64), (24, 2, 128)])
+def test_decode_attention_kernel_matches_plain(cuda, H, KV, hd):
+    """G = H / KV in {1, 4, 8, 12} at hd 64 and 128: the fleet's shape (W=512,
+    lens 1, 97, 300, 512), then cache_len 0, the chunk edges, W and past W at
+    W = 512 and at W = 300 and 513 (no multiple of the chunk); each call
+    launches the kernel once and lands within 2e-5 of the plain version."""
+    cases = [(512, [1, 97, 300, 512])] + [(W, _chunk_edges(W)) for W in (512, 300, 513)]
+    for W, lens in cases:
+        q, kc, vc, cl = _decode_inputs(cuda, H + KV + hd + W, lens, W, H, KV, hd)
+        before = DA.launches
+        out = DA.decode_attention(q, kc, vc, cl)
+        assert DA.launches == before + 1
+        torch.testing.assert_close(out, DA.decode_attention_plain(q, kc, vc, cl),
+                                   rtol=0, atol=2e-5, msg=f"W={W} lens={lens}")
+
+
+@pytest.mark.parametrize("H,KV,hd", [(16, 16, 64), (24, 2, 128)])
+def test_decode_attention_rows_do_not_depend_on_the_batch(cuda, H, KV, hd):
+    """Each slot's row of a batched call equals a B=1 call on that slot alone,
+    byte for byte: the fleet's slots decode as RaLMSeq's single request does."""
+    for W, lens in ((512, [1, 97, 300, 512]), (513, _chunk_edges(513))):
+        q, kc, vc, cl = _decode_inputs(cuda, H + hd + W, lens, W, H, KV, hd)
+        out = DA.decode_attention(q, kc, vc, cl)
+        for b in range(len(lens)):
+            one = DA.decode_attention(q[b:b + 1], kc[b:b + 1], vc[b:b + 1],
+                                      cl[b:b + 1].clone())   # 16-byte aligned
+            assert torch.equal(one[0], out[b]), (W, lens[b])
+
+
+def test_decode_attention_repeats_to_the_byte(cuda):
+    """Two calls on the same inputs give the same bytes whichever chunk
+    combines, and every call leaves the ticket counters at zero."""
+    lens = _chunk_edges(512) + [1, 97, 300, 512]
+    q, kc, vc, cl = _decode_inputs(cuda, 21, lens, 512, 24, 2, 64)
+    first = DA.decode_attention(q, kc, vc, cl)
+    for _ in range(3):
+        assert torch.equal(DA.decode_attention(q, kc, vc, cl), first)
+    torch.cuda.synchronize()
+    assert not DA._scratch[q.device.index][0].any()
 
 
 @pytest.mark.parametrize("S,H,KV,hd,causal,window,prefix", [

@@ -413,19 +413,29 @@ def test_gathered_and_quant_wrappers_reject_bad_inputs():
 # B2 decode attention
 # ---------------------------------------------------------------------------------
 @pytest.mark.parametrize("B,H,KV,hd,W", [(3, 4, 4, 32, 64), (2, 8, 2, 16, 130),
-                                         (4, 8, 1, 64, 257)])
+                                         (4, 8, 1, 64, 257),
+                                         # a fifth row at cache_len 0 (W a multiple of
+                                         # block_w: the Pallas kernel pads the window)
+                                         (5, 4, 4, 32, 128),
+                                         # 12 query heads per KV head
+                                         (5, 24, 2, 16, 128), (3, 24, 2, 16, 130)])
 def test_decode_attention_plain_matches_pallas(B, H, KV, hd, W):
-    """GQA groups, per-row cache_len, ring slots past cache_len masked."""
+    """GQA groups, per-row cache_len, ring slots past cache_len masked; a row
+    at cache_len 0 has every slot masked, so its output is the mean of v over
+    the window."""
     rng = np.random.default_rng(B * W + H)
     q = rng.standard_normal((B, H, hd)).astype(np.float32)
     kc = rng.standard_normal((B, W, KV, hd)).astype(np.float32)
     vc = rng.standard_normal((B, W, KV, hd)).astype(np.float32)
-    cl = np.asarray([1, W, W // 3, 7][:B], np.int32)
+    cl = np.asarray([1, W, W // 3, 7, 0][:B], np.int32)
     ref = decode_attention_pallas(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
                                   jnp.asarray(cl), block_w=64, interpret=True)
     out = DA.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
                               torch.from_numpy(vc), torch.from_numpy(cl))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    if B == 5:
+        np.testing.assert_allclose(out[4].numpy(), vc[4].mean(0).repeat(H // KV, 0),
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_decode_attention_ignores_slots_past_cache_len():
