@@ -33,7 +33,15 @@
    then a 4-slot FleetServer (variant psa), checks that the tokens are
    identical and that the path's kernels were launched on it (counts set to 0
    just before the path and read just after); recall@20 of int8 against fp32
-   over the queries the int8 paths served;
+   over the queries the int8 paths served. Then the EDR fleet with seeded
+   faults injected into its KB path (RaLMSeq's tokens, no round degraded);
+   SR (BM25 over a 50k-passage SparseKB, RaLMSeq and the fleet); and KNN-LM:
+   full-width knnlm-247m over a 1M x 1024 datastore, KNNLMSeq against the
+   4-slot fleet on EDR (B1) and ADR (B4, the IVF index built on the host
+   over the same datastore), and ContinuousFleetServer over Poisson
+   arrivals; last, B1 at the datastore's shape (N = 1M, d = 1024, k = 8) at
+   B = 1 and at the largest merged B the KNN-LM fleet issued, checked and
+   timed as in phase 3;
 5. one JSON line with every kernel's numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -43,6 +51,7 @@ exits with code 2 before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import itertools
@@ -62,6 +71,11 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32, CUDA cores (NVIDIA data sheet)
 SERVE_N_DOCS = 500_000          # DPR's Wikipedia has 21M passages of d = 768
 SERVE_ENC_DIM = 768
+SR_N_DOCS = 50_000              # BM25 scores every passage on the host per query
+KNN_N_DOCS = 20_834             # 48 tokens each: a 1,000,032-token stream
+KNN_ENTRIES = 1_000_000         # Wikitext-103's datastore holds 103M entries
+KNN_KEY_DIM = 1024              # knnlm-247m's d_model: the width of its keys
+KNN_ARRIVAL_RATE = 8.0          # requests per modeled second: 8 arrive in ~0.7 s
 
 
 def takes_any_d_and_k() -> bool:
@@ -694,12 +708,15 @@ def build_serving(dev):
     return stack, ivf, qb
 
 
-def serve_path(stack, prompts, label: str, kernels) -> dict:
-    """RaLMSeq, then a 4-slot psa fleet, over one stack: the tokens must be
-    identical, every fleet group must make one merged KB call per round plus
-    its seed call, and each kernel in ``kernels`` must have been launched.
-    The launch counts are set to 0 just before and read just after."""
+def serve_path(stack, prompts, label: str, kernels) -> tuple:
+    """The sequential baseline (RaLMSeq, or KNNLMSeq for KNN-LM), then a
+    4-slot psa fleet, over one stack: the tokens must be identical (KNN-LM:
+    token-match), every fleet group must make one merged KB call per round
+    plus its seed call, and each kernel in ``kernels`` must have been
+    launched. The launch counts are set to 0 just before and read just
+    after. Returns (counts, the baseline's tokens)."""
     from repro_torch.launch.serve import make_server
+    base = "KNNLMSeq" if stack.workload.name == "knnlm" else "RaLMSeq"
     reset_counts()
     torch.cuda.synchronize()
     seq = make_server(stack, scheduler="seq")
@@ -707,7 +724,7 @@ def serve_path(stack, prompts, label: str, kernels) -> dict:
     seq_res = [seq.serve(p) for p in prompts]
     seq_wall = time.perf_counter() - t
     n_tok = sum(len(r.tokens) for r in seq_res)
-    print(f"{label} RaLMSeq   x{len(prompts)}: wall {seq_wall:.3f} s  G "
+    print(f"{label} {base}   x{len(prompts)}: wall {seq_wall:.3f} s  G "
           f"{sum(r.gen_time for r in seq_res):.3f} s  R "
           f"{sum(r.retrieval_time for r in seq_res):.3f} s  {n_tok / seq_wall:.1f} tok/s  "
           f"KB calls {sum(r.kb_calls for r in seq_res)}")
@@ -729,14 +746,182 @@ def serve_path(stack, prompts, label: str, kernels) -> dict:
     r_t = sum(r.retrieval_time for r in fleet_res[::4])
     print(f"{label} Fleet x4 psa x{len(prompts)}: wall {fleet_wall:.3f} s  G {g:.3f} s  "
           f"R {r_t:.3f} s  {n_tok / fleet_wall:.1f} tok/s  rounds {rounds}  KB calls "
-          f"{kb_calls}  speed-up over RaLMSeq {seq_wall / fleet_wall:.2f}x")
+          f"{kb_calls}  speed-up over {base} {seq_wall / fleet_wall:.2f}x")
     same = [a.tokens == b.tokens for a, b in zip(seq_res, fleet_res)]
-    print(f"{label}: launches {({n: c for n, c in counts.items() if c})}  "
-          f"outputs identical: {all(same)}")
-    check(all(same), f"{label}: fleet tokens differ from RaLMSeq: {same}")
-    check(all(len(r.tokens) == 48 for r in seq_res), f"{label}: RaLMSeq stopped short")
+    kind = "outputs token-match" if base == "KNNLMSeq" else "outputs identical"
+    print(f"{label}: launches {({n: c for n, c in counts.items() if c})}  {kind}: {all(same)}")
+    check(all(same), f"{label}: fleet tokens differ from {base}: {same}")
+    check(all(len(r.tokens) == 48 for r in seq_res), f"{label}: {base} stopped short")
+    check(all(len(r.tokens) == 48 for r in fleet_res), f"{label}: the fleet stopped short")
     check(all(counts[n] > 0 for n in kernels), f"{label}: a kernel was not launched: {counts}")
+    return counts, [r.tokens for r in seq_res]
+
+
+def serve_faults(stack, prompts, want, label: str) -> dict:
+    """The EDR fleet with a seeded fault schedule injected into its KB path
+    (a fresh retriever over the same KB and kernel backend): the injector
+    must fire, every error must be retried away (no round degraded, no
+    worker crashed), and the tokens must be RaLMSeq's."""
+    from repro_torch.launch.serve import make_server
+    from repro_torch.retrieval.faults import inject_faults, parse_fault_spec
+    from repro_torch.retrieval.retrievers import ExactDenseRetriever
+    retr = ExactDenseRetriever(stack.retriever.kb, backend=stack.retriever.backend)
+    inj = inject_faults(retr, parse_fault_spec("p_error=0.2,seed=3"))
+    st = dataclasses.replace(stack, retriever=retr, engine=None)
+    reset_counts()
+    torch.cuda.synchronize()
+    with make_server(st, scheduler="fixed", n_slots=4) as fleet:
+        fr = fleet.serve(prompts)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"{label} Fleet x4 psa x{len(prompts)}: wall {fr.wall_time:.3f} s  injected "
+          f"{inj.errors} errors over {inj.calls} KB scans; retried {fr.kb_errors}, failed "
+          f"{fr.kb_failures}, degraded rounds {fr.degraded_rounds}, worker crashes "
+          f"{fr.worker_crashes}, rounds {fr.rounds}  launches "
+          f"{({n: c for n, c in counts.items() if c})}")
+    check(inj.injected > 0, f"{label}: the injector never fired")
+    check(fr.kb_errors == inj.errors and fr.kb_failures == 0, f"{label}: a call failed")
+    check(fr.degraded_rounds == 0 and fr.worker_crashes == 0,
+          f"{label}: {fr.degraded_rounds} degraded rounds, {fr.worker_crashes} crashes")
+    same = [r.tokens == w for r, w in zip(fr.results, want)]
+    print(f"{label}: outputs identical to RaLMSeq: {all(same)}")
+    check(all(same), f"{label}: tokens differ from RaLMSeq: {same}")
+    check(counts["dense_topk"] > 0, f"{label}: B1 was not launched")
     return counts
+
+
+def serve_continuous(stack, prompts, want, label: str) -> dict:
+    """ContinuousFleetServer, 4 slots, the prompts arriving as a Poisson
+    process on the modeled clock: each request must give KNNLMSeq's tokens,
+    every round one KB call plus the batched seed calls, and some request
+    must have waited for a slot."""
+    from repro_torch.launch.serve import make_arrivals, make_server
+    from repro_torch.serving.continuous import as_requests
+    arrivals = make_arrivals(len(prompts), KNN_ARRIVAL_RATE, seed=0)
+    reset_counts()
+    torch.cuda.synchronize()
+    with make_server(stack, scheduler="continuous", n_slots=4) as srv:
+        cr = srv.serve(as_requests(prompts, arrivals))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    finish = [a + lat for a, lat in zip(arrivals, cr.latencies)]
+    # request j waited when the slots were all busy at its arrival
+    waited = sum(1 for j in range(4, len(prompts))
+                 if sum(finish[i] <= arrivals[j] for i in range(j)) < j - 3)
+    n_tok = cr.total_tokens
+    print(f"{label} Continuous x4 psa x{len(prompts)} (Poisson {KNN_ARRIVAL_RATE} req/s, "
+          f"arrivals {', '.join(f'{a:.3f}' for a in arrivals)} s): wall {cr.wall_time:.3f} s "
+          f"({n_tok / cr.wall_time:.1f} tok/s)  modeled makespan {cr.analytic_time:.3f} s  "
+          f"latency p50 {cr.p50:.3f} s p99 {cr.p99:.3f} s (modeled)  rounds {cr.rounds}  "
+          f"seed calls {cr.seed_calls}  KB calls {cr.kb_calls}  peak live {cr.max_live}  "
+          f"requests that waited for a slot {waited}")
+    check(cr.kb_calls == cr.rounds + cr.seed_calls,
+          f"{label}: {cr.kb_calls} KB calls, {cr.rounds} rounds, {cr.seed_calls} seeds")
+    check(cr.kb_errors == 0 and cr.degraded_rounds == 0 and cr.shed == 0,
+          f"{label}: a KB call failed or a request was shed")
+    check(waited > 0 and cr.max_live == 4, f"{label}: no request queued")
+    same = [r.tokens == w for r, w in zip(cr.results, want)]
+    print(f"{label}: launches {({n: c for n, c in counts.items() if c})}  outputs "
+          f"token-match: {all(same)}")
+    check(all(same), f"{label}: tokens differ from KNNLMSeq: {same}")
+    check(all(counts[n] > 0 for n in ("dense_topk", "decode_attention",
+                                      "prefill_attention")),
+          f"{label}: a kernel was not launched: {counts}")
+    return counts
+
+
+@contextlib.contextmanager
+def host_seconds(module, names):
+    """Host seconds spent in each of ``module``'s functions ``names`` while
+    the block runs: the parts of a ``build_stack`` call, which keeps no
+    times of its own."""
+    saved = {n: getattr(module, n) for n in names}
+    spent = dict.fromkeys(names, 0.0)
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t
+        return call
+
+    for n, fn in saved.items():
+        setattr(module, n, timed(n, fn))
+    try:
+        yield spent
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def build_knnlm(dev):
+    """knnlm-247m as published over the 1M x 1024 datastore (EDR, kernel
+    backend), and the ADR index over the same datastore and backend."""
+    from repro_torch.configs import RaLMConfig
+    from repro_torch.launch import serve
+    from repro_torch.retrieval.retrievers import IVFRetriever
+    t0 = time.perf_counter()
+    rcfg = serve.variant_config("psa", RaLMConfig(knnlm=True, max_new_tokens=48))
+    parts = ("synthetic_corpus", "build_knn_datastore", "ExactDenseRetriever")
+    with host_seconds(serve, parts) as spent:
+        stack = serve.build_stack("edr", arch="knnlm-247m", full_width=True,
+                                  workload="knnlm", n_docs=KNN_N_DOCS, enc_dim=KNN_KEY_DIM,
+                                  knn_entries=KNN_ENTRIES, backend="kernel", device=dev,
+                                  rcfg=rcfg)
+    cfg, kb = stack.cfg, stack.retriever.kb
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+           cfg.d_ff, cfg.vocab_size) == (16, 1024, 16, 16, 64, 4096, 50304),
+          "the KNN-LM stack is not knnlm-247m as published")
+    check(len(stack.stream) == KNN_N_DOCS * 48 and kb.embeddings.shape ==
+          (KNN_ENTRIES, KNN_KEY_DIM), f"datastore {kb.embeddings.shape}")
+    print(f"KNN-LM stack: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} head_dim {cfg.head_dim} d_ff {cfg.d_ff} vocab "
+          f"{cfg.vocab_size}; datastore {kb.embeddings.shape} from a {len(stack.stream)}-token "
+          f"stream, {stack.retriever.backend.kb_bytes / 1e9:.2f} GB on the card; host "
+          f"seconds: corpus {spent['synthetic_corpus']:.1f}, datastore "
+          f"{spent['build_knn_datastore']:.1f}, upload {spent['ExactDenseRetriever']:.1f}; "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ivf = IVFRetriever(kb, backend=stack.retriever.backend)
+    sizes = np.asarray([len(b) for b in ivf.buckets])
+    print(f"KNN-LM ADR index: {len(sizes)} clusters, nprobe {ivf.nprobe}, buckets "
+          f"{sizes.min()}..{sizes.max()} entries, C = {ivf._cand_width(8)}; k-means (8 "
+          f"iterations) on the host in {time.perf_counter() - t0:.1f} s")
+    return stack, ivf
+
+
+def check_datastore_topk(dev, kb, asked, report: dict) -> None:
+    """B1 at the KNN-LM datastore's shape (N = 1M, d = 1024, k = 8) on the
+    queries the KNN-LM paths asked: at B = 1 (KNNLMSeq) and at the largest
+    merged B of the fleet; checked against the plain version, a query's row
+    against its row in the largest batch, and timed against the library."""
+    from repro_torch.kernels import dense_topk as K
+    N, d = kb.shape
+    k = 8
+    big = max((q for q, _ in asked), key=len)
+    rows = {}
+    for q_np in (big[:1], big):
+        B = len(q_np)
+        q = torch.as_tensor(np.ascontiguousarray(q_np), device=dev)
+        s_k, i_k = rows[B] = K.dense_topk(q, kb, k)
+        s_p, i_p = K.dense_topk_plain(q, kb, k + 1)
+        err, gap = compare_topk(f"B1 datastore B={B}", s_k, i_k, s_p, i_p, k)
+        t = timed(lambda: K.dense_topk(q, kb, k), lambda: torch.topk(q @ kb.T, k))
+        plain = cuda_ms(lambda: K.dense_topk_plain(q, kb, k))
+        bms, by = bound_ms(4.0 * (N * d + B * d + 2 * B * k), 2.0 * B * N * d)
+        print(f"B1 dense_topk datastore N={N} d={d} B={B:3d} k={k}: "
+              f"{fmt_times(t, 'torch.topk(q@kb.T)')}  plain {plain:.4f} ms  "
+              f"bound {bms:.4f} ms ({by})  max|dscore| {err:.2e}  "
+              f"rows with a clear k-th gap {int(gap.sum())}/{B}")
+        report.setdefault("dense_topk@datastore", {})[f"B={B}"] = dict(
+            max_abs_err=err, plain_ms=plain, bound_ms=bms, bound_by=by,
+            shape=f"B={B} N={N} d={d} k={k}", **t)
+    B = len(big)
+    check(torch.equal(rows[1][0][0], rows[B][0][0]) and torch.equal(rows[1][1][0], rows[B][1][0]),
+          f"B1 datastore: the B=1 row != its row at B={B}")
+    print(f"B1 datastore: the B=1 row == its row at B={B} byte for byte")
 
 
 def engine_checks(stack, prompts, dev) -> None:
@@ -831,6 +1016,7 @@ def main(argv) -> int:
         sys.path.insert(0, str(Path(args.src).resolve()))
     import repro_torch  # noqa: F401  (switches TF32 off)
     from repro_torch.kernels import _build
+    from repro_torch.launch.serve import build_stack
     from repro_torch.retrieval.retrievers import ExactDenseRetriever, RetrieverStats
     from repro_torch.training.data import make_queries
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -873,29 +1059,59 @@ def main(argv) -> int:
     # phase 4: the serving paths, each with its own launch counts
     prompts = prompts[:8]
     torch.cuda.reset_peak_memory_stats()
-    paths = {"EDR kernel": serve_path(stack, prompts, "EDR kernel",
-                                      ("dense_topk", "decode_attention", "prefill_attention"))}
+    paths = {}
+    paths["EDR kernel"], seq_tokens = serve_path(
+        stack, prompts, "EDR kernel", ("dense_topk", "decode_attention", "prefill_attention"))
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"EDR kernel: peak device memory {peak:.2f} GiB")
     adr = dataclasses.replace(stack, retriever=ivf, retriever_kind="adr", engine=None)
-    paths["ADR kernel"] = serve_path(adr, prompts, "ADR kernel", ("fused_gathered_topk",))
+    paths["ADR kernel"], _ = serve_path(adr, prompts, "ADR kernel", ("fused_gathered_topk",))
     rec = RecordingBackend(qb)
     qedr = dataclasses.replace(stack, retriever=ExactDenseRetriever(stack.retriever.kb,
                                                                     backend=rec),
                                backend="int8-kernel", engine=None)
-    paths["EDR int8-kernel"] = serve_path(qedr, prompts[:4], "EDR int8-kernel",
-                                          ("quant_dense_topk",))
+    paths["EDR int8-kernel"], _ = serve_path(qedr, prompts[:4], "EDR int8-kernel",
+                                             ("quant_dense_topk",))
     qivf = copy.copy(ivf)                             # the same index, int8 backend
     qivf.backend, qivf.stats = rec, RetrieverStats("linear_intercept")
     qadr = dataclasses.replace(adr, retriever=qivf, backend="int8-kernel", engine=None)
-    paths["ADR int8-kernel"] = serve_path(qadr, prompts[:4], "ADR int8-kernel",
-                                          ("quant_fused_gathered_topk",))
-    counts = {n: sum(c[n] for c in paths.values()) for n in check_counts}
-    # last: host dispatch stays slower after torch.profiler has run
-    engine_checks(stack, prompts, dev)
+    paths["ADR int8-kernel"], _ = serve_path(qadr, prompts[:4], "ADR int8-kernel",
+                                             ("quant_fused_gathered_topk",))
+    paths["EDR kernel, faults"] = serve_faults(stack, prompts[:4], seq_tokens[:4],
+                                               "EDR kernel, faults")
     recall = recall_at(20, rec.asked, fp32, qb)
     print("recall@20 of int8-kernel against kernel over the served query rows: " +
           ", ".join(f"{n} {r:.4f} ({m} rows)" for n, (r, m) in recall.items()))
+    del rec, qedr, qivf, qadr, qb
+    t0 = time.perf_counter()
+    sr = build_stack("sr", n_docs=SR_N_DOCS, full_width=True, device=dev, rcfg=stack.rcfg)
+    print(f"SR stack: BM25 over {sr.retriever.kb.size} passages (terms "
+          f"{sr.retriever.kb.terms.shape}); built in {time.perf_counter() - t0:.1f} s")
+    sr_prompts = [(q * 12)[:48] for q in make_queries(sr.docs, 4)]
+    paths["SR numpy"], _ = serve_path(sr, sr_prompts, "SR numpy",
+                                      ("decode_attention", "prefill_attention"))
+    del sr
+    torch.cuda.empty_cache()
+
+    # KNN-LM: knnlm-247m over the 1M x 1024 datastore
+    knn, knn_ivf = build_knnlm(dev)
+    knn_prompts = [knn.stream[i * 97:i * 97 + 48].tolist() for i in range(8)]
+    knn_rec = RecordingBackend(knn.retriever.backend)   # the merged batches, for B1 below
+    knn.retriever.backend = knn_rec
+    paths["KNN-LM EDR kernel"], knn_tokens = serve_path(
+        knn, knn_prompts, "KNN-LM EDR kernel",
+        ("dense_topk", "decode_attention", "prefill_attention"))
+    knn.retriever.backend = knn_rec.inner
+    knn_adr = dataclasses.replace(knn, retriever=knn_ivf, retriever_kind="adr", engine=None)
+    paths["KNN-LM ADR kernel"], adr_tokens = serve_path(
+        knn_adr, knn_prompts, "KNN-LM ADR kernel", ("fused_gathered_topk",))
+    paths["KNN-LM EDR continuous"] = serve_continuous(knn, knn_prompts, knn_tokens,
+                                                      "KNN-LM EDR kernel")
+    counts = {n: sum(c[n] for c in paths.values()) for n in check_counts}
+    check_datastore_topk(dev, knn.retriever.backend._kb, knn_rec.asked, report)
+    del knn_rec, knn_adr, knn_ivf
+    # last: host dispatch stays slower after torch.profiler has run
+    engine_checks(stack, prompts, dev)
 
     src = "src/repro_torch/kernels/csrc/"
     sources = {"dense_topk": ("dense_topk.cu", "dense_topk.py:188"),
@@ -924,6 +1140,8 @@ def main(argv) -> int:
             entry["cold_device_ms"] = r["cold_device_ms"]
         if f"{name}@B=1" in report:      # B2 and the gathered scans at RaLMSeq's B=1
             entry["at_B1"] = report[f"{name}@B=1"]
+        if f"{name}@datastore" in report:    # B1 over the KNN-LM datastore
+            entry["at_datastore"] = report[f"{name}@datastore"]
         if name in ("gathered_topk", "quant_gathered_topk"):
             # no serving route in either package: its launches are phase 3's
             entry["launches"] = check_counts[name]

@@ -6,7 +6,7 @@ Output preservation: RaLMSpec.serve() produces *exactly* the token sequence of
 RaLMSeq.serve() for the same request (greedy decoding + rank-preserving cache +
 rollback-on-mismatch), and the multi-request fleet paths preserve it per slot:
 repro_torch.serving.fleet.FleetServer at any fixed concurrency, and
-the reference's ContinuousFleetServer (not ported yet) under continuous batching — no
+repro_torch.serving.continuous.ContinuousFleetServer under continuous batching — no
 matter when a request is admitted, which slot it lands in, or what rollbacks its
 slot neighbors take. tests/test_system.py asserts the single-request claim;
 tests/test_output_preservation.py the batched-engine and fixed-fleet claims;
@@ -25,7 +25,7 @@ overlapped step of each fully-verified slot:
 
   * ``repro_torch.serving.fleet.FleetServer`` runs N of them in lockstep over a fixed
     request group,
-  * the reference's ``ContinuousFleetServer`` (not ported yet) runs them over a slot
+  * ``repro_torch.serving.continuous.ContinuousFleetServer`` runs them over a slot
     pool with continuous batching — requests are admitted into slots the moment
     they free up mid-flight and retired as they finish, so ``RequestState`` also
     carries request identity (``rid``), a per-request token budget (``max_new``),

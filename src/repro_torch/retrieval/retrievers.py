@@ -1,4 +1,5 @@
-"""Retrievers (the port's ``repro.retrieval.retrievers``, EDR and ADR).
+"""Retrievers (the port's ``repro.retrieval.retrievers``): the three the paper
+evaluates.
 
   * ExactDenseRetriever (EDR) — brute-force inner product over the flat index.
                                 Scoring is delegated to a
@@ -12,11 +13,11 @@
                                 Centroid scoring stays host-side; the
                                 per-bucket document scan delegates to the
                                 same backends (``search_gathered``).
-
-SR (``BM25Retriever``) is a later slice; only its name exists here, for the
-serving core's sparse/dense check.
+  * BM25Retriever       (SR)  — bag-of-words over the SparseKB, numpy on the
+                                host (neither package has a kernel for it).
 
 All retrievers expose:  retrieve(queries, k) -> (ids (B,k) int64, scores (B,k)).
+``queries`` is (B, d) embeddings for dense retrievers, a list of term-lists for BM25.
 The wall-clock timing + :class:`RetrieverStats` bookkeeping lives ONCE in
 :class:`_TimedRetriever`; subclasses implement only the pure scan.
 """
@@ -24,12 +25,13 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.retrieval.backends import DenseSearchBackend, make_backend
-from repro_torch.retrieval.kb import DenseKB
+from repro_torch.retrieval.backends import (DenseSearchBackend, canonical_topk,
+                                            make_backend)
+from repro_torch.retrieval.kb import DenseKB, SparseKB
 
 
 class RetrieverStats:
@@ -295,11 +297,26 @@ class IVFRetriever(_TimedRetriever):
 
 
 class BM25Retriever(_TimedRetriever):
-    """SR over a SparseKB — ported with the SR slice (ROADMAP.md). The class
-    exists so the serving core can tell sparse retrievers from dense ones."""
+    """SR: BM25 over a SparseKB."""
 
     name = "SR"
 
-    def __init__(self, kb):
-        raise NotImplementedError(
-            "BM25Retriever (SR) is not ported yet; the port serves EDR and ADR")
+    def __init__(self, kb: SparseKB):
+        self.kb = kb
+        self.stats = RetrieverStats("const")
+
+    def _prep(self, queries):
+        if queries and isinstance(queries[0], (int, np.integer)):
+            return [queries]
+        return queries
+
+    def _search(self, queries: List[list], k: int) -> Tuple[np.ndarray, np.ndarray]:
+        # canonical tie order (score desc, id asc) like the dense backends —
+        # the sparse speculation cache retrieves canonically, so under exact
+        # BM25 ties both sides name the same doc (no spurious rollback)
+        s = np.stack([self.kb.score(q) for q in queries])
+        return canonical_topk(s, k)
+
+    def keys_of(self, ids) -> np.ndarray:
+        """Sparse 'keys' are the per-doc term arrays."""
+        return self.kb.terms[np.asarray(ids, np.int64)]

@@ -23,8 +23,12 @@ engine would produce for the same prompt/doc schedule.
   * slots leave a lockstep ``gen`` when they hit EOS or their own budget; a
     masked merge commits each slot's state as of its *own* last step.
   * slot lifecycle: ``admit(slot, prompt)`` prefills into a free slot,
-    ``retire(slot)`` frees it again; ``gen``/``snapshot``/``restore`` operate
-    only on active slots.
+    ``retire(slot)`` frees it again; ``gen``/``advance``/``snapshot``/
+    ``restore`` operate only on active slots. The continuous scheduler
+    (``serving/continuous.py``) drives this API to admit queued requests
+    mid-flight.
+  * KNN-LM hooks: ``peek_logits(slot)`` reads a slot's next-token logits and
+    ``advance(slots, toks)`` decodes externally chosen tokens in one step.
 """
 from __future__ import annotations
 
@@ -104,6 +108,9 @@ class BatchedServeEngine:
         self.tokens[slot] = []
         self.n_prompt[slot] = 0
         self.doc[slot] = ()
+
+    def free_slots(self) -> List[int]:
+        return [b for b in range(self.n_slots) if not self.active[b]]
 
     def start(self, slot: int, prompt: Sequence[int],
               doc: Sequence[int] = ()) -> None:
@@ -197,6 +204,39 @@ class BatchedServeEngine:
         return _tree_map(
             lambda n, c: torch.where(mask.reshape((-1,) + (1,) * (n.ndim - 1)), n, c),
             current, committed)
+
+    def peek_logits(self, slot: int) -> np.ndarray:
+        """Logits for the slot's *next* token given its current context —
+        the batched form of ServeEngine.peek_logits (KNN-LM interpolation).
+        One (vocab,) copy to the host per call."""
+        assert self.active[slot], f"peek_logits of idle slot {slot}"
+        return self._last_logits[slot].cpu().numpy()
+
+    def advance(self, slots: Sequence[int], toks: Sequence[int]) -> None:
+        """Append one externally-chosen token per given slot (KNN-LM: the
+        interpolated argmax) and run ONE batched decode step over exactly
+        those slots — the lockstep form of ServeEngine.advance. As in
+        ``gen``, the step builds a new bundle and the masked commit keeps the
+        old rows of the slots not in ``slots`` (decoded with a dummy token
+        and discarded), so nothing a snapshot holds is written."""
+        slots = [int(b) for b in slots]
+        assert all(self.active[b] for b in slots), \
+            f"advance over idle slot(s): {[b for b in slots if not self.active[b]]}"
+        t0 = time.perf_counter()
+        committed = self._bundle()
+        state, pos, _ = committed
+        tok_vec = np.zeros((self.n_slots,), np.int64)
+        for b, t in zip(slots, toks):
+            t = int(t)
+            self.tokens[b].append(t)
+            tok_vec[b] = t
+        logits2, state2 = self._decode(state, tok_vec, pos)
+        pos2 = pos + self._mask(slots).to(torch.int32)
+        self._set_bundle(self._commit_bundle((state2, pos2, logits2), committed,
+                                             slots))
+        _sync(self.device)
+        self.stats.decode_time += time.perf_counter() - t0
+        self.stats.decodes += len(slots)
 
     # ---- per-slot views ---------------------------------------------------------------
     def generated(self, slot: int) -> List[int]:

@@ -26,7 +26,7 @@ per-request RaLMSeq outputs (tests/test_output_preservation.py).
 A speculation round (``_run_round``) is defined over the *currently live* slot
 set, not a fixed batch width: FleetServer.serve feeds it a fixed request group
 until every member finishes, while :class:`ContinuousFleetServer`
-(the reference's serving.continuous, not ported yet) feeds it whatever slots hold admitted requests this
+(repro_torch.serving.continuous) feeds it whatever slots hold admitted requests this
 instant — admitting queued requests into freed slots between rounds and
 retiring finished ones, so slots never idle while work is waiting. Per-request
 token budgets (``RequestState.max_new``) are honored per slot, which is what
@@ -149,7 +149,7 @@ class FleetServer(_ServerBase):
     ``workload`` selects the Algorithm-1 specifics the round loop runs
     (:mod:`repro_torch.serving.workload`): None picks by ``rcfg.knnlm`` —
     :class:`~repro_torch.serving.workload.IterativeRaLMWorkload` (byte-parity) or
-    the reference's ``KNNLMWorkload`` (token-match, not ported yet). Everything
+    :class:`~repro_torch.serving.workload.KNNLMWorkload` (token-match). Everything
     workload-shared — merged KB call, dedup ledger, shared cache tier, fault
     shell, async overlap — lives here."""
 

@@ -440,3 +440,94 @@ def test_kernel_launches_capture_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# ---------------------------------------------------------------------------------
+# KNN-LM serving hooks of the batched engine on the card
+# ---------------------------------------------------------------------------------
+def _knn_stack(cuda):
+    from repro_torch.configs import RaLMConfig
+    from repro_torch.launch.serve import build_stack
+    return build_stack("edr", n_docs=300, workload="knnlm", knn_entries=6000,
+                       backend="kernel", device=cuda,
+                       rcfg=RaLMConfig(max_new_tokens=16, speculation_stride=3))
+
+
+def test_batched_peek_logits_rows_match_the_single_engine(cuda):
+    """Row b of a B=4 step's logits against the same context decoded at B=1:
+    cuBLAS may pick other GEMMs at M=4 and M=1, so the rows may differ in
+    the last bits (the largest difference is printed); the argmax agrees."""
+    from repro_torch.serving.batched import BatchedServeEngine
+    from repro_torch.serving.engine import ServeEngine
+    st = _knn_stack(cuda)
+    prompts = [st.stream[i * 97:i * 97 + 48].tolist() for i in range(4)]
+    beng = BatchedServeEngine(st.model, st.params, 4, cache_window=64)
+    singles = [ServeEngine(st.model, st.params, cache_window=64) for _ in range(4)]
+    for b, p in enumerate(prompts):
+        beng.start(b, p)
+        singles[b].start(p)
+    worst = 0.0
+    rng = np.random.default_rng(0)
+    for _ in range(24):                           # past the 64-entry ring
+        toks = rng.integers(2, st.cfg.vocab_size, 4).tolist()
+        for b in range(4):
+            one, row = singles[b].peek_logits(), beng.peek_logits(b)
+            assert one.shape == row.shape == (st.cfg.vocab_size,)
+            worst = max(worst, float(np.abs(one - row).max()))
+            assert int(np.argmax(one)) == int(np.argmax(row))
+            singles[b].advance(toks[b])
+        beng.advance(range(4), toks)
+    print(f"max |logit difference| B=4 row vs B=1: {worst:.3e}")
+
+
+def test_batched_advance_keeps_other_rows_and_snapshots(cuda):
+    """``advance`` over two of four slots leaves the other two slots' logits
+    and positions unchanged, and every snapshot taken before it still
+    restores its slot to the logits it had."""
+    from repro_torch.serving.batched import BatchedServeEngine
+    st = _knn_stack(cuda)
+    beng = BatchedServeEngine(st.model, st.params, 4, cache_window=64)
+    for b in range(4):
+        beng.start(b, st.stream[b * 97:b * 97 + 40].tolist())
+    snaps = {b: beng.snapshot(b) for b in range(4)}
+    before = {b: beng.peek_logits(b).copy() for b in range(4)}
+    pos0 = beng._pos.clone()
+    kept = [t.clone() for t in beng._state[0].values()]
+    for _ in range(3):
+        beng.advance([0, 2], [5, 6])
+    assert torch.equal(beng._pos[[1, 3]], pos0[[1, 3]])
+    assert torch.equal(beng._pos[[0, 2]], pos0[[0, 2]] + 3)
+    for b in (1, 3):
+        assert np.array_equal(beng.peek_logits(b), before[b])
+    for b in (0, 2):
+        assert not np.array_equal(beng.peek_logits(b), before[b])
+        assert beng.tokens[b][-3:] == [5 + b // 2] * 3
+    # the snapshot's bundle was never written into
+    assert all(torch.equal(a, b) for a, b in zip(kept, snaps[0][2][0][0].values()))
+    for b in (0, 2):
+        beng.restore(b, snaps[b])
+        assert np.array_equal(beng.peek_logits(b), before[b])
+
+
+def test_knnlm_fleet_on_cuda_token_matches_knnlmseq(cuda):
+    """A reduced KNN-LM stack on the card: the 3-slot fleet (sync and async)
+    and the continuous server give KNNLMSeq's tokens through the same kernel
+    backend, one merged B1 scan per round; B1, B2 and B3 are launched."""
+    import dataclasses
+    from repro_torch.launch.serve import make_server
+    from repro_torch.serving.continuous import as_requests
+    st = _knn_stack(cuda)
+    prompts = [st.stream[i * 97:i * 97 + 48].tolist() for i in range(3)]
+    c0 = (DT.launches, DA.launches, PA.launches)
+    want = [make_server(st, scheduler="seq").serve(p).tokens for p in prompts]
+    assert all(len(t) == 16 for t in want)
+    assert DT.launches > c0[0] and DA.launches > c0[1] and PA.launches > c0[2]
+    for sched, rounds in (("fixed", False), ("fixed", True), ("continuous", False)):
+        s2 = dataclasses.replace(st, engine=None, rcfg=dataclasses.replace(
+            st.rcfg, async_verification=rounds, async_gate_ratio=0.0))
+        with make_server(s2, scheduler=sched, n_slots=3) as srv:
+            calls = DT.launches
+            fr = srv.serve(as_requests(prompts) if sched == "continuous" else prompts)
+        assert [r.tokens for r in fr.results] == want, (sched, rounds)
+        assert DT.launches - calls == fr.kb_calls
+        assert fr.kb_calls == fr.rounds + (fr.seed_calls if sched == "continuous" else 1)
