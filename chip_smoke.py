@@ -17,8 +17,10 @@
    (any d: ROADMAP fault C1); B2 at the fleet's B=4 and RaLMSeq's B=1
    shapes (warm and cold L2), a slot's B=1 row == its B=4 row byte for
    byte, and 12 query heads per KV head at hd 128 with cache_len 0 and > W
-   (ROADMAP fault C2). A tree run with --src that refuses k > 256, such d
-   or such heads is checked without those shapes. Each
+   (ROADMAP fault C2); B2 and B3 at hd 256 (paligemma-3b's 8 / 1 heads,
+   timed), 112 and 32, at cache_len 0 and past W, causal, windowed and with
+   a prefix (ROADMAP fault C3). A tree run with --src that refuses k > 256,
+   such d, such heads or such head dims is checked without those shapes. Each
    kernel and one library call as its yardstick get two times: the device
    time (20 calls captured in a CUDA graph, the replay timed with CUDA
    events) and the per-call time (CUDA events around 5 back-to-back calls,
@@ -39,11 +41,19 @@
    full-width knnlm-247m over a 1M x 1024 datastore, KNNLMSeq against the
    4-slot fleet on EDR (B1) and ADR (B4, the IVF index built on the host
    over the same datastore), and ContinuousFleetServer over Poisson
-   arrivals; last, B1 at the datastore's shape (N = 1M, d = 1024, k = 8) at
+   arrivals; B1 at the datastore's shape (N = 1M, d = 1024, k = 8) at
    B = 1 and at the largest merged B the KNN-LM fleet issued, checked and
-   timed as in phase 3;
-5. one JSON line with every kernel's numbers, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+   timed as in phase 3. Then, with the gpt2 weights and the KNN-LM stack
+   freed, three more model families at full width, each through
+   ``build_stack(arch=..., full_width=True)`` over the same 500k KB,
+   RaLMSeq against the 4-slot fleet on 4 prompts: qwen2-moe-a2.7b (MoE, 60
+   experts, B1-B3), xlstm-350m (mLSTM and sLSTM, no attention: B1) and
+   paligemma-3b (B1, and B2 and B3 at hd 256), each with its peak device
+   memory and one timed re-prefill; last, the engine checks (batch variance,
+   snapshot cost, a profiled decode step and re-prefill) on the gpt2
+   weights drawn again from their seed;
+5. one JSON line with every kernel's numbers, the script's total seconds,
+   the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the exit code is not 0. Without a CUDA device it
 exits with code 2 before printing any result.
@@ -54,6 +64,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import itertools
 import json
 import statistics
@@ -76,6 +87,7 @@ KNN_N_DOCS = 20_834             # 48 tokens each: a 1,000,032-token stream
 KNN_ENTRIES = 1_000_000         # Wikitext-103's datastore holds 103M entries
 KNN_KEY_DIM = 1024              # knnlm-247m's d_model: the width of its keys
 KNN_ARRIVAL_RATE = 8.0          # requests per modeled second: 8 arrive in ~0.7 s
+T0 = 0.0                        # when main() started
 
 
 def takes_any_d_and_k() -> bool:
@@ -424,6 +436,85 @@ def check_prefill_attention(dev, report: dict) -> None:
           f"GQA, bidirectional) at B=2: max abs err {worst:.2e}, B=2 rows == B=1 calls")
 
 
+def takes_any_head_dim() -> bool:
+    """Whether B2 and B3 of the tree under test take every hd <= 256
+    (ROADMAP fault C3; an older tree, run with --src, takes hd 64 and 128
+    only: those checks are skipped)."""
+    from repro_torch.kernels import decode_attention
+    return hasattr(decode_attention, "instance_hd")
+
+
+def time_prefill(K, q, k, v, kw: dict, label: str) -> dict:
+    """B3 at one shape against its plain version (2e-5), its device and
+    call times, SDPA's (on k and v expanded to every query head outside the
+    timed call, where the mask is plain causal), the plain version's, and
+    the bound."""
+    F = torch.nn.functional
+    _, S, H, hd = q.shape
+    KV = k.shape[2]
+    out = K.prefill_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (out - K.prefill_attention_plain(q, k, v, **kw)).abs().max().item()
+    check(err <= 2e-5, f"B3 {label}: max abs err {err}")
+    plain = cuda_ms(lambda: K.prefill_attention_plain(q, k, v, **kw))
+    lib = None
+    if kw["window"] == 0 and kw["prefix_len"] == 0:
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.transpose(1, 2).repeat_interleave(H // KV, 1).contiguous() for t in (k, v))
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    t = timed(lambda: K.prefill_attention(q, k, v, **kw), lib)
+    pairs = int(K.allowed_mask(S, S, device=q.device, **kw).sum())
+    bms, by = bound_ms(4.0 * S * (2 * H + 2 * KV) * hd, 4.0 * pairs * H * hd)
+    print(f"B3 prefill_attention {label}: {fmt_times(t, 'SDPA')}  plain {plain:.4f} ms  "
+          f"bound {bms:.5f} ms ({by})  max abs err {err:.2e}")
+    return dict(max_abs_err=err, plain_ms=plain, bound_ms=bms, bound_by=by, shape=label, **t)
+
+
+def check_head_dims(dev, report: dict) -> None:
+    """ROADMAP fault C3: B2 and B3 at the head dims of the configs the port
+    serves beside hd 64 and 128. paligemma-3b's 8 query heads over 1 KV head
+    at hd 256, timed: B2 at the fleet's B=4 and RaLMSeq's B=1, B3 at S=160
+    causal; then, at hd 256, 112 (kimi-k2's 64 / 8 heads) and 32 (reduced
+    configs), B2 at cache_len 0, 1, 63, 64, 65, W and past W with each
+    slot's row equal to its B=1 call, and B3 causal, with a sliding window
+    and with a bidirectional prefix, each within 2e-5 of the plain version."""
+    from repro_torch.kernels import decode_attention as DK
+    from repro_torch.kernels import prefill_attention as PK
+    gen = torch.Generator(device=dev).manual_seed(7)
+    W, S = 512, 160
+    q, kc, vc = decode_inputs(gen, 4, W, 8, 1, 256, dev)
+    lens = torch.tensor([1, 97, 300, 512], dtype=torch.int32, device=dev)
+    report["decode_attention@hd256"] = {
+        "B=4": time_decode(DK, q, kc, vc, lens, gen),
+        "B=1 L=512": time_decode(DK, q[3:4], kc[3:4], vc[3:4], lens[3:4].clone(), gen)}
+    q, k, v = (torch.randn((1, S, h, 256), generator=gen, device=dev) for h in (8, 1, 1))
+    report["prefill_attention@hd256"] = time_prefill(
+        PK, q, k, v, dict(causal=True, window=0, prefix_len=0),
+        f"B=1 S={S} H=8 KV=1 hd=256 causal")
+    edge = torch.tensor([0, 1, 63, 64, 65, W, W + 9], dtype=torch.int32, device=dev)
+    worst = 0.0
+    for hd, H, KV in ((256, 8, 1), (112, 64, 8), (32, 4, 2)):
+        q, kc, vc = decode_inputs(gen, len(edge), W, H, KV, hd, dev)
+        out = DK.decode_attention(q, kc, vc, edge)
+        err = (out - DK.decode_attention_plain(q, kc, vc, edge)).abs().max().item()
+        check(err <= 2e-5, f"B2 hd={hd} H={H} KV={KV} lens={edge.tolist()}: {err}")
+        for b in range(len(edge)):
+            one = DK.decode_attention(q[b:b + 1], kc[b:b + 1], vc[b:b + 1], edge[b:b + 1].clone())
+            check(torch.equal(one[0], out[b]), f"B2 hd={hd}: slot {b}'s B=1 row != its row")
+        worst = max(worst, err)
+        for window, prefix in ((0, 0), (64, 0), (0, 37)):
+            qq, kk, vv = (torch.randn((2, S, h, hd), generator=gen, device=dev)
+                          for h in (H, KV, KV))
+            kw = dict(causal=True, window=window, prefix_len=prefix)
+            got = PK.prefill_attention(qq, kk, vv, **kw)
+            err = (got - PK.prefill_attention_plain(qq, kk, vv, **kw)).abs().max().item()
+            check(err <= 2e-5, f"B3 hd={hd} H={H} KV={KV} {kw}: {err}")
+            worst = max(worst, err)
+        print(f"C3 hd={hd} H={H} KV={KV}: B2 at cache_len {edge.tolist()} (W={W}) and B3 at "
+              f"S={S} causal, window 64, prefix 37 within 2e-5 of plain; B2 rows == B=1 calls")
+    print(f"C3: B2 and B3 at hd 256, 112 and 32: max abs err {worst:.2e}")
+
+
 # the one PyTorch call (or composed call) timed beside each kernel
 LIBRARY_CALLS = {
     "dense_topk": "torch.topk(q @ kb.T)",
@@ -721,17 +812,21 @@ def serve_path(stack, prompts, label: str, kernels) -> tuple:
     torch.cuda.synchronize()
     seq = make_server(stack, scheduler="seq")
     t = time.perf_counter()
-    seq_res = [seq.serve(p) for p in prompts]
+    seq_res, seq_prefills = [], 0
+    for p in prompts:
+        seq_res.append(seq.serve(p))
+        seq_prefills += seq.engine.stats.prefills     # the engine's counts are per request
     seq_wall = time.perf_counter() - t
     n_tok = sum(len(r.tokens) for r in seq_res)
     print(f"{label} {base}   x{len(prompts)}: wall {seq_wall:.3f} s  G "
           f"{sum(r.gen_time for r in seq_res):.3f} s  R "
           f"{sum(r.retrieval_time for r in seq_res):.3f} s  {n_tok / seq_wall:.1f} tok/s  "
-          f"KB calls {sum(r.kb_calls for r in seq_res)}")
-    fleet_res, fleet_wall, rounds, kb_calls = [], 0.0, 0, 0
+          f"KB calls {sum(r.kb_calls for r in seq_res)}  prefills {seq_prefills}")
+    fleet_res, fleet_wall, rounds, kb_calls, fleet_prefills = [], 0.0, 0, 0, 0
     with make_server(stack, scheduler="fixed", n_slots=4) as fleet:
         for i in range(0, len(prompts), 4):
             fr = fleet.serve(prompts[i:i + 4])
+            fleet_prefills += fleet.engine.stats.prefills   # per group
             check(fr.kb_errors == 0 and fr.degraded_rounds == 0 and fr.worker_crashes == 0,
                   f"{label}: a fleet KB call failed")
             check(fr.kb_calls == fr.rounds + 1,
@@ -746,13 +841,15 @@ def serve_path(stack, prompts, label: str, kernels) -> tuple:
     r_t = sum(r.retrieval_time for r in fleet_res[::4])
     print(f"{label} Fleet x4 psa x{len(prompts)}: wall {fleet_wall:.3f} s  G {g:.3f} s  "
           f"R {r_t:.3f} s  {n_tok / fleet_wall:.1f} tok/s  rounds {rounds}  KB calls "
-          f"{kb_calls}  speed-up over {base} {seq_wall / fleet_wall:.2f}x")
+          f"{kb_calls}  prefills {fleet_prefills}  speed-up over {base} "
+          f"{seq_wall / fleet_wall:.2f}x")
     same = [a.tokens == b.tokens for a, b in zip(seq_res, fleet_res)]
     kind = "outputs token-match" if base == "KNNLMSeq" else "outputs identical"
     print(f"{label}: launches {({n: c for n, c in counts.items() if c})}  {kind}: {all(same)}")
     check(all(same), f"{label}: fleet tokens differ from {base}: {same}")
-    check(all(len(r.tokens) == 48 for r in seq_res), f"{label}: {base} stopped short")
-    check(all(len(r.tokens) == 48 for r in fleet_res), f"{label}: the fleet stopped short")
+    n_new = stack.rcfg.max_new_tokens
+    check(all(len(r.tokens) == n_new for r in seq_res), f"{label}: {base} stopped short")
+    check(all(len(r.tokens) == n_new for r in fleet_res), f"{label}: the fleet stopped short")
     check(all(counts[n] > 0 for n in kernels), f"{label}: a kernel was not launched: {counts}")
     return counts, [r.tokens for r in seq_res]
 
@@ -924,6 +1021,74 @@ def check_datastore_topk(dev, kb, asked, report: dict) -> None:
     print(f"B1 datastore: the B=1 row == its row at B={B} byte for byte")
 
 
+# the model families beside dense that the port serves, at full width:
+# (arch, what the config must hold: layers, d_model, heads, KV heads,
+# head_dim, vocab) -- each over the RaLM paths' 500k x 768 KB
+FAMILY_PATHS = (("qwen2-moe-a2.7b", (24, 2048, 16, 16, 128, 151936)),
+                ("xlstm-350m", (24, 1024, 4, 4, 256, 50304)),
+                ("paligemma-3b", (18, 2048, 8, 1, 256, 257216)))
+FAMILY_PROMPTS = 4
+
+
+def serve_family(arch: str, want: tuple, base, prompts, dev) -> dict:
+    """One model family at full width through ``build_stack(arch=...,
+    full_width=True)`` (random fp32 weights from seed 0, drawn on the card),
+    retrieving over ``base``'s passages, KB and kernel backend (the stack's
+    own small KB is dropped). Its own encoder spans the model's vocab and
+    shares its first rows with ``base``'s (one seeded stream), so the KB is
+    what it encodes for those passages, whose token ids fit every vocab:
+    RaLMSeq against the 4-slot psa fleet through ``serve_path``, B1 always
+    launched and B2 and B3 wherever the model has attention layers. Prints
+    the parameter count, the peak device memory, and one B=1 re-prefill at
+    S = 144 (a passage, a prompt and 48 generated tokens) timed with CUDA
+    events."""
+    from repro_torch.launch.serve import build_stack
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fam = build_stack("edr", arch=arch, full_width=True, backend="kernel", n_docs=64,
+                      enc_dim=SERVE_ENC_DIM, device=dev, rcfg=base.rcfg)
+    n_base = base.encoder.table.shape[0]
+    check(np.array_equal(fam.encoder.table[:n_base], base.encoder.table),
+          f"{arch}: its encoder's first {n_base} rows are not the KB's encoder")
+    fam = dataclasses.replace(fam, docs=base.docs, retriever=base.retriever)
+    cfg = fam.cfg
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+           cfg.vocab_size) == want, f"{arch} is not full width: {cfg}")
+    n_params = sum(t.numel() for t in _leaves(fam.params))
+    kinds = cfg.layer_kinds()
+    print(f"{arch} stack: family {cfg.family}, {cfg.num_layers} layers "
+          f"({', '.join(f'{kinds.count(k)} {k}' for k in dict.fromkeys(kinds))}), d_model "
+          f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}"
+          + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} + "
+             f"{cfg.moe.num_shared_experts} shared" if cfg.moe else "")
+          + f"; {n_params / 1e9:.2f}B params ({n_params * 4 / 2**30:.1f} GiB fp32) drawn on "
+          f"the card in {time.perf_counter() - t0:.1f} s")
+    attn = "attn" in kinds
+    kernels = ("dense_topk",) + (("decode_attention", "prefill_attention") if attn else ())
+    counts, _ = serve_path(fam, prompts, arch, kernels)
+    if not attn:
+        check(counts["decode_attention"] == counts["prefill_attention"] == 0,
+              f"{arch}: an attention kernel ran in a model without attention: {counts}")
+    ctx = list(base.docs[0]) + [t for p in prompts for t in p]
+    toks = torch.as_tensor([ctx[:144]], device=dev)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fam.model.prefill(fam.params, toks, window_cache=512),
+                     windows=3, inner=1, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{arch}: one B=1 re-prefill at S={toks.shape[1]} takes {ms:.1f} ms (CUDA "
+          f"events); peak device memory {peak:.2f} GiB")
+    return counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
 def engine_checks(stack, prompts, dev) -> None:
     """Batch variance of the decode step, the cost of functional snapshots,
     and where a decode step and a re-prefill spend their time."""
@@ -960,10 +1125,10 @@ def engine_checks(stack, prompts, dev) -> None:
           f"takes {copy:.4f} ms; one full-width B=4 decode step takes {step:.4f} ms")
 
     # where a decode step and a re-prefill spend their time on the device
-    toks = torch.as_tensor([list(docs[0]) + prompts[0][:96]], device=dev)   # S = 160
+    toks = torch.as_tensor([list(docs[0]) + prompts[0][:96]], device=dev)
     work = {"B=4 decode step": (lambda: stack.model.decode_step(
                 stack.params, state, tok, pos), step),
-            "B=1 re-prefill S=160": (lambda: stack.model.prefill(
+            f"B=1 re-prefill S={toks.shape[1]}": (lambda: stack.model.prefill(
                 stack.params, toks, window_cache=512), None)}
     for label, (fn, ms) in work.items():
         with torch.no_grad():
@@ -1007,6 +1172,8 @@ def main(argv) -> int:
     parser.add_argument("--src", help="run phases 1-3 only, with the src/ directory of "
                                       "this or another tree (e.g. an unpacked parent commit)")
     args = parser.parse_args(argv)
+    global T0
+    T0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -1040,6 +1207,8 @@ def main(argv) -> int:
     check_dense_topk(dev, SERVE_N_DOCS, SERVE_ENC_DIM, report)
     check_decode_attention(dev, report)
     check_prefill_attention(dev, report)
+    if takes_any_head_dim():
+        check_head_dims(dev, report)
     stack, ivf, qb = build_serving(dev)
     prompts = [(q * 12)[:48] for q in make_queries(stack.docs, 64)]
     queries = stack.encoder.encode_batch(prompts)       # what RaLMSeq asks first
@@ -1107,9 +1276,25 @@ def main(argv) -> int:
         knn_adr, knn_prompts, "KNN-LM ADR kernel", ("fused_gathered_topk",))
     paths["KNN-LM EDR continuous"] = serve_continuous(knn, knn_prompts, knn_tokens,
                                                       "KNN-LM EDR kernel")
-    counts = {n: sum(c[n] for c in paths.values()) for n in check_counts}
     check_datastore_topk(dev, knn.retriever.backend._kb, knn_rec.asked, report)
-    del knn_rec, knn_adr, knn_ivf
+    del knn, knn_rec, knn_adr, knn_ivf
+
+    # the MoE, SSM and VLM families at full width over the same KB; the
+    # ralm-gpt2-medium weights and engines and the KNN-LM stack are freed
+    # first (the KB, the docs and the encoder stay), and the gpt2 weights
+    # are drawn again from the same seed for the engine checks after
+    del adr, ivf
+    stack.params, stack.engine = None, None
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, want in FAMILY_PATHS:
+        paths[arch] = serve_family(arch, want, stack, prompts[:FAMILY_PROMPTS], dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = {n: sum(c[n] for c in paths.values()) for n in check_counts}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    stack.params = stack.model.init(gen)
     # last: host dispatch stays slower after torch.profiler has run
     engine_checks(stack, prompts, dev)
 
@@ -1142,12 +1327,15 @@ def main(argv) -> int:
             entry["at_B1"] = report[f"{name}@B=1"]
         if f"{name}@datastore" in report:    # B1 over the KNN-LM datastore
             entry["at_datastore"] = report[f"{name}@datastore"]
+        if f"{name}@hd256" in report:        # B2 and B3 at paligemma-3b's shapes
+            entry["at_hd256"] = report[f"{name}@hd256"]
         if name in ("gathered_topk", "quant_gathered_topk"):
             # no serving route in either package: its launches are phase 3's
             entry["launches"] = check_counts[name]
             entry["launches_from"] = "phase 3 checks (no serving route in either package)"
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
+    print(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -23,8 +23,9 @@
 // gave 16. Each warp owns 8 entries of the chunk and issues every load of
 // their keys and values into registers at once (the whole chunk is in flight
 // before the first use): a key over 4 lanes, so a score is 2 shuffles away,
-// and a value row over hd / 4 lanes, one float4 column each, so P.V needs at
-// most one shuffle. The warp then walks the G query heads of its group (q
+// and a value row over min(32, pow2(hd / 4)) lanes, one float4 column each
+// (two at hd > 128; lanes past hd / 4 idle), so P.V needs at most three
+// shuffles. The warp then walks the G query heads of its group (q
 // from shared memory, in tiles of kHeadTile heads): score, max and sum over
 // its 8 entries and P.V, all by fixed shuffle trees, with no block barrier.
 // One barrier per tile, then a thread per (head, float4 column) merges the
@@ -38,6 +39,13 @@
 // on G and hd, never on B, W or which CTA finishes last: a slot's output is
 // the same bytes at any batch size, and repeated calls give the same bytes.
 // No float atomics. One launch per call, no other runtime call.
+//
+// Head dims: the kernel is instantiated for hd in {16, 32, 64, 112, 128,
+// 256} (kHeads); the wrapper zero-pads any other hd <= 256 to the next
+// instance, and the softmax scale comes from the call (the real hd's), so a
+// padded lane adds 0 to every score and gives a 0 output column that the
+// wrapper drops. The per-HD shapes (Dims) keep every array static: at hd
+// 256 a pass covers 4 query heads, so sQ and sAcc stay at 36 KB.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -49,7 +57,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kWarpRows = 8;                  // cache entries per warp
 constexpr int kChunk = kWarps * kWarpRows;    // cache entries per CTA
-constexpr int kHeadTile = 8;                  // query heads per pass over a chunk
 constexpr int kBatch = 8;                     // chunks whose partials the merge loads at once
 constexpr unsigned kAll = 0xffffffffu;
 constexpr float kNeg = -3.4e38f;
@@ -73,18 +80,37 @@ __device__ __forceinline__ int take_ticket(int* ticket) {
   return old;
 }
 
-// registers: hd 128 keeps 16 float4 of keys and values per lane (2 CTAs an
-// SM), hd 64 keeps 8 (3 CTAs an SM)
+constexpr int pow2_at_least(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+// How a warp lays a cache row of HD floats over its lanes.
 template <int HD>
-__global__ void __launch_bounds__(kThreads, HD == 64 ? 3 : 2)
+struct Dims {
+  static_assert(HD % 4 == 0 && HD >= 16 && HD <= 256, "HD: a multiple of 4 in [16, 256]");
+  static constexpr int kVec = HD / 4;                       // float4 per cache row
+  static constexpr int kKeyVec = (kVec + 3) / 4;            // float4 of a key per lane (4 lanes a key)
+  static constexpr int kVP = kVec >= 32 ? 32 : pow2_at_least(kVec);  // lanes per value row
+  static constexpr int kVCols = (kVec + 31) / 32;           // float4 columns per lane
+  static constexpr int kRowsPerLoad = 32 / kVP;             // value rows one warp-wide load covers
+  static constexpr int kValRows = kWarpRows / kRowsPerLoad; // value rows per lane
+  static constexpr int kHeadTile = kThreads / kVec < 8 ? kThreads / kVec : 8;  // heads a pass
+};
+
+// registers: hd 256 keeps 32 float4 of keys and values per lane (1 CTA an
+// SM by registers), hd 112 and 128 keep 15-16 (2), hd <= 64 at most 8 (3)
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : (HD <= 128 ? 2 : 1))
 decode_attn_kernel(const float* __restrict__ q, const float* __restrict__ kc,
                    const float* __restrict__ vc, const int* __restrict__ cache_len,
                    float* __restrict__ out, float* __restrict__ part,
                    int* __restrict__ tickets, int H, int W, int KV, int G, float scale) {
-  constexpr int kVec = HD / 4;                  // float4 per cache row
-  constexpr int kKeyVec = kVec / 4;             // float4 of a key per lane (4 lanes a key)
-  constexpr int kRowsPerLoad = 32 / kVec;       // value rows one warp-wide load covers
-  constexpr int kValRows = kWarpRows / kRowsPerLoad;   // value rows per lane
+  using D = Dims<HD>;
+  constexpr int kVec = D::kVec, kKeyVec = D::kKeyVec, kVP = D::kVP, kVCols = D::kVCols;
+  constexpr int kRowsPerLoad = D::kRowsPerLoad, kValRows = D::kValRows;
+  constexpr int kHeadTile = D::kHeadTile;
   __shared__ __align__(16) float sQ[kHeadTile][HD];
   __shared__ __align__(16) float sAcc[kWarps][kHeadTile][HD];
   __shared__ float sM[kWarps][kHeadTile];
@@ -113,22 +139,26 @@ decode_attn_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   // this warp's entries w0 .. w0 + 7 of the chunk, every load issued here
   const int w0 = warp * kWarpRows;
   const int ke = lane / 4, kq = lane % 4;       // key: entry, quarter (float4 kq + 4i)
-  const int vr = lane / kVec, vx = lane % kVec; // value: first row, float4 column
+  const int vr = lane / kVP, vx = lane % kVP;   // value: first row, first float4 column
   const size_t stride = static_cast<size_t>(KV) * HD;  // floats between entries
   const size_t base = ((static_cast<size_t>(b) * W + t0 + w0) * KV + kvh) * HD;
   const bool key_ok = w0 + ke < valid;
-  float4 kr[kKeyVec], vv[kValRows];
+  float4 kr[kKeyVec], vv[kValRows][kVCols];
 #pragma unroll
   for (int i = 0; i < kKeyVec; ++i)
-    kr[i] = key_ok && !uniform  // equal scores read no key
+    kr[i] = key_ok && !uniform && kq + 4 * i < kVec  // equal scores read no key
                 ? *reinterpret_cast<const float4*>(kc + base + ke * stride + (kq + 4 * i) * 4)
                 : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
   for (int j = 0; j < kValRows; ++j) {
     const int e = vr + kRowsPerLoad * j;
-    vv[j] = w0 + e < valid
-                ? *reinterpret_cast<const float4*>(vc + base + e * stride + vx * 4)
-                : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int cc = 0; cc < kVCols; ++cc) {
+      const int col = vx + 32 * cc;
+      vv[j][cc] = w0 + e < valid && col < kVec
+                      ? *reinterpret_cast<const float4*>(vc + base + e * stride + col * 4)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
 
   const size_t slot_row = static_cast<size_t>(b) * KV + kvh;   // (slot, KV head)
@@ -151,11 +181,13 @@ decode_attn_kernel(const float* __restrict__ q, const float* __restrict__ kc,
         float s = 0.0f;
 #pragma unroll
         for (int i = 0; i < kKeyVec; ++i) {
-          const float4 a = qr[kq + 4 * i];
-          s = fmaf(a.x, kr[i].x, s);
-          s = fmaf(a.y, kr[i].y, s);
-          s = fmaf(a.z, kr[i].z, s);
-          s = fmaf(a.w, kr[i].w, s);
+          if (kq + 4 * i < kVec) {            // hd / 4 not a multiple of 4: a short key
+            const float4 a = qr[kq + 4 * i];
+            s = fmaf(a.x, kr[i].x, s);
+            s = fmaf(a.y, kr[i].y, s);
+            s = fmaf(a.z, kr[i].z, s);
+            s = fmaf(a.w, kr[i].w, s);
+          }
         }
         s += __shfl_xor_sync(kAll, s, 1);
         s += __shfl_xor_sync(kAll, s, 2);
@@ -168,18 +200,28 @@ decode_attn_kernel(const float* __restrict__ q, const float* __restrict__ kc,
         float l = p;
 #pragma unroll
         for (int o = 4; o < 32; o <<= 1) l += __shfl_xor_sync(kAll, l, o);
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 acc[kVCols];
 #pragma unroll
-        for (int j = 0; j < kValRows; ++j)
-          acc = fma4(__shfl_sync(kAll, p, 4 * (vr + kRowsPerLoad * j)), vv[j], acc);
+        for (int cc = 0; cc < kVCols; ++cc) acc[cc] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-        for (int o = kVec; o < 32; o <<= 1) {   // rows split over lane groups
-          acc.x += __shfl_xor_sync(kAll, acc.x, o);
-          acc.y += __shfl_xor_sync(kAll, acc.y, o);
-          acc.z += __shfl_xor_sync(kAll, acc.z, o);
-          acc.w += __shfl_xor_sync(kAll, acc.w, o);
+        for (int j = 0; j < kValRows; ++j) {
+          const float pj = __shfl_sync(kAll, p, 4 * (vr + kRowsPerLoad * j));
+#pragma unroll
+          for (int cc = 0; cc < kVCols; ++cc) acc[cc] = fma4(pj, vv[j][cc], acc[cc]);
         }
-        if (lane < kVec) *reinterpret_cast<float4*>(&sAcc[warp][g][vx * 4]) = acc;
+#pragma unroll
+        for (int cc = 0; cc < kVCols; ++cc) {
+#pragma unroll
+          for (int o = kVP; o < 32; o <<= 1) {  // rows split over lane groups
+            acc[cc].x += __shfl_xor_sync(kAll, acc[cc].x, o);
+            acc[cc].y += __shfl_xor_sync(kAll, acc[cc].y, o);
+            acc[cc].z += __shfl_xor_sync(kAll, acc[cc].z, o);
+            acc[cc].w += __shfl_xor_sync(kAll, acc[cc].w, o);
+          }
+          const int col = vx + 32 * cc;
+          if (lane < kVP && col < kVec)
+            *reinterpret_cast<float4*>(&sAcc[warp][g][col * 4]) = acc[cc];
+        }
         if (lane == 0) {
           sM[warp][g] = m;
           sL[warp][g] = l;
@@ -263,8 +305,8 @@ decode_attn_kernel(const float* __restrict__ q, const float* __restrict__ kc,
 
 template <int HD>
 int launch(const float* q, const float* k, const float* v, const int* cache_len, float* out,
-           float* part, int* tickets, int B, int H, int W, int KV, cudaStream_t stream) {
-  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+           float* part, int* tickets, int B, int H, int W, int KV, float scale,
+           cudaStream_t stream) {
   dim3 grid((W + kChunk - 1) / kChunk, KV, B);
   decode_attn_kernel<HD><<<grid, kThreads, 0, stream>>>(q, k, v, cache_len, out, part,
                                                         tickets, H, W, KV, H / KV, scale);
@@ -276,12 +318,25 @@ int launch(const float* q, const float* k, const float* v, const int* cache_len,
 // q (B, H, hd), k/v cache (B, W, KV, hd), cache_len (B,) i32 -> out (B, H, hd),
 // all f32 and contiguous. part: the chunks' partials, B * H * ceil(W / 64) *
 // (hd + 2) floats (unused when W <= 64); tickets: B * KV int32, zero between
-// launches (each launch leaves them zero). The caller guarantees hd in
-// {64, 128} and H % KV == 0.
+// launches (each launch leaves them zero). scale multiplies every score (the
+// caller's 1 / sqrt of the unpadded hd). The caller guarantees H % KV == 0;
+// an hd with no instance returns cudaErrorInvalidValue without a launch.
 extern "C" int decode_attention_launch(const float* q, const float* k, const float* v,
                                        const int* cache_len, float* out, float* part,
                                        int* tickets, int B, int H, int W, int KV, int hd,
-                                       cudaStream_t stream) {
-  if (hd == 64) return launch<64>(q, k, v, cache_len, out, part, tickets, B, H, W, KV, stream);
-  return launch<128>(q, k, v, cache_len, out, part, tickets, B, H, W, KV, stream);
+                                       float scale, cudaStream_t stream) {
+  switch (hd) {
+#define DECODE_CASE(N) \
+  case N:              \
+    return launch<N>(q, k, v, cache_len, out, part, tickets, B, H, W, KV, scale, stream);
+    DECODE_CASE(16)
+    DECODE_CASE(32)
+    DECODE_CASE(64)
+    DECODE_CASE(112)
+    DECODE_CASE(128)
+    DECODE_CASE(256)
+#undef DECODE_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

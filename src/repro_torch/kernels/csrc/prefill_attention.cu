@@ -26,11 +26,17 @@
 // pair of q rows: each scores kBK / 16 keys for both rows from 16-byte reads
 // of q and k (2 + kBK / 16 loads per 8 * kBK / 16 FMAs, each score a
 // sequential fmaf chain over hd), the row max and sum are reduced across the
-// half-warp with shuffles, and each thread accumulates hd / 16 output
-// dimensions of both rows from 16-byte reads of p and v. Masked pairs
+// half-warp with shuffles, and each thread accumulates the float4 output
+// columns ct, ct + 16, ... of both rows from 16-byte reads of p and v. Masked pairs
 // contribute exactly zero, so a row whose first tiles are all masked never
 // picks up weight from them. No choice of tiling depends on B: an output row
 // depends only on its own sequence.
+//
+// Head dims: instantiated for hd in {16, 32, 64, 112, 128, 256}; the
+// wrapper zero-pads any other hd <= 256 to the next instance and passes the
+// real hd's softmax scale, so padded lanes add 0 to every score and give 0
+// output columns that the wrapper drops. hd 256 takes 151 KB of dynamic
+// shared memory (one CTA an SM), under the card's 227 KB.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -45,9 +51,11 @@ constexpr float kNeg = -3.4e38f;
 
 template <int HD>
 struct Tile {
-  static constexpr int kBK = HD == 64 ? 64 : 32;   // keys per k/v tile
+  static_assert(HD % 4 == 0 && HD >= 16 && HD <= 256, "HD: a multiple of 4 in [16, 256]");
+  static constexpr int kBK = HD <= 64 ? 64 : 32;   // keys per k/v tile
   static constexpr int kKPT = kBK / kCols;          // keys per thread in q k^T
-  static constexpr int kDPT = HD / kCols;           // output dims per thread
+  static constexpr int kVec = HD / 4;               // float4 per row
+  static constexpr int kDV = (kVec + kCols - 1) / kCols;   // float4 output columns per thread
   static constexpr int kPitch = HD + 4;             // q and k rows: 16-byte reads of 8
                                                     // consecutive rows hit 8 bank quads
   static constexpr int kPPitch = kBK + 4;           // probability rows
@@ -65,7 +73,7 @@ prefill_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out, int S, int H,
                     int KV, int causal, int window, int prefix_len, float scale) {
   using Tl = Tile<HD>;
-  constexpr int kBK = Tl::kBK, kKPT = Tl::kKPT, kDPT = Tl::kDPT;
+  constexpr int kBK = Tl::kBK, kKPT = Tl::kKPT, kVec = Tl::kVec, kDV = Tl::kDV;
   constexpr int kPitch = Tl::kPitch, kPPitch = Tl::kPPitch;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                          // [kBQ][kPitch]
@@ -111,9 +119,9 @@ prefill_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_commit();                         // group: the q tile and the first k/v tile
 
   float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
-  float acc[2][kDPT];
+  float acc[2][4 * kDV];
 #pragma unroll
-  for (int e = 0; e < kDPT; ++e) acc[0][e] = acc[1][e] = 0.0f;
+  for (int e = 0; e < 4 * kDV; ++e) acc[0][e] = acc[1][e] = 0.0f;
 
   for (int kt = lo; kt < hi; ++kt) {
     const int buf = (kt - lo) & 1;
@@ -180,7 +188,7 @@ prefill_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l[a] = l[a] * corr + psum;
       m[a] = mn;
 #pragma unroll
-      for (int e = 0; e < kDPT; ++e) acc[a][e] *= corr;
+      for (int e = 0; e < 4 * kDV; ++e) acc[a][e] *= corr;
     }
     __syncwarp();                            // the row pair's half-warp wrote its p rows
 
@@ -191,10 +199,12 @@ prefill_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float pb[4] = {pb4.x, pb4.y, pb4.z, pb4.w};
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
-        const float* vr = vt_s + (c + cc) * HD + ct * 4;
+        const float* vr = vt_s + (c + cc) * HD;
 #pragma unroll
-        for (int e4 = 0; e4 < kDPT / 4; ++e4) {
-          const float4 x = ld4(vr + 64 * e4);
+        for (int e4 = 0; e4 < kDV; ++e4) {
+          const int col = ct + kCols * e4;
+          if (col >= kVec) continue;         // hd / 4 not a multiple of 16
+          const float4 x = ld4(vr + 4 * col);
           const int e = 4 * e4;
           acc[0][e] = fmaf(pa[cc], x.x, acc[0][e]);
           acc[0][e + 1] = fmaf(pa[cc], x.y, acc[0][e + 1]);
@@ -216,26 +226,29 @@ prefill_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = q_lo + r0 + a;
     if (qi < S) {
       const float inv = 1.0f / fmaxf(l[a], 1e-30f);
-      float* o = out + ((static_cast<size_t>(b) * S + qi) * H + h) * HD + ct * 4;
+      float* o = out + ((static_cast<size_t>(b) * S + qi) * H + h) * HD;
 #pragma unroll
-      for (int e4 = 0; e4 < kDPT / 4; ++e4)
-        *reinterpret_cast<float4*>(o + 64 * e4) =
-            make_float4(acc[a][4 * e4] * inv, acc[a][4 * e4 + 1] * inv,
-                        acc[a][4 * e4 + 2] * inv, acc[a][4 * e4 + 3] * inv);
+      for (int e4 = 0; e4 < kDV; ++e4) {
+        const int col = ct + kCols * e4;
+        if (col < kVec)
+          *reinterpret_cast<float4*>(o + 4 * col) =
+              make_float4(acc[a][4 * e4] * inv, acc[a][4 * e4 + 1] * inv,
+                          acc[a][4 * e4 + 2] * inv, acc[a][4 * e4 + 3] * inv);
+      }
     }
   }
 }
 
 template <int HD>
 void launch(const float* q, const float* k, const float* v, float* out, int B, int S,
-            int H, int KV, int causal, int window, int prefix_len, cudaStream_t stream) {
+            int H, int KV, int causal, int window, int prefix_len, float scale,
+            cudaStream_t stream) {
   // once per instantiation, not per launch: a launch inside CUDA-graph
   // capture makes no other runtime call
   static const cudaError_t attr = cudaFuncSetAttribute(
       prefill_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<HD>::kSmem);
   (void)attr;
   dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
   prefill_attn_kernel<HD><<<grid, kThreads, Tile<HD>::kSmem, stream>>>(
       q, k, v, out, S, H, KV, causal, window, prefix_len, scale);
 }
@@ -243,14 +256,27 @@ void launch(const float* q, const float* k, const float* v, float* out, int B, i
 }  // namespace
 
 // q (B, S, H, hd), k/v (B, S, KV, hd) -> out (B, S, H, hd), all f32 and
-// contiguous. The caller guarantees hd in {64, 128} and H % KV == 0.
+// contiguous; scale multiplies every score (the caller's 1 / sqrt of the
+// unpadded hd). The caller guarantees H % KV == 0; an hd with no instance
+// returns cudaErrorInvalidValue without a launch.
 extern "C" int prefill_attention_launch(const float* q, const float* k, const float* v,
                                         float* out, int B, int S, int H, int KV, int hd,
-                                        int causal, int window, int prefix_len,
+                                        int causal, int window, int prefix_len, float scale,
                                         cudaStream_t stream) {
-  if (hd == 64)
-    launch<64>(q, k, v, out, B, S, H, KV, causal, window, prefix_len, stream);
-  else
-    launch<128>(q, k, v, out, B, S, H, KV, causal, window, prefix_len, stream);
+  switch (hd) {
+#define PREFILL_CASE(N)                                                                \
+  case N:                                                                              \
+    launch<N>(q, k, v, out, B, S, H, KV, causal, window, prefix_len, scale, stream); \
+    break;
+    PREFILL_CASE(16)
+    PREFILL_CASE(32)
+    PREFILL_CASE(64)
+    PREFILL_CASE(112)
+    PREFILL_CASE(128)
+    PREFILL_CASE(256)
+#undef PREFILL_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,9 +9,11 @@ slot with cache_len <= 0 has every entry masked, so its softmax weights are
 equal and its output is the mean of v over the whole window, as the
 reference's is. Every caller on the serving path has cache_len >= 1.
 
-:func:`decode_attention` runs the CUDA kernel on CUDA tensors (hd in
-{64, 128}) and :func:`decode_attention_plain` on CPU tensors. ``launches``
-counts kernel launches. The kernel splits each slot's cache into chunks of
+:func:`decode_attention` runs the CUDA kernel on CUDA tensors (any hd up
+to :data:`MAX_HD`: the kernel is built for the widths in :data:`HEAD_DIMS`,
+and any other hd is zero-padded to the next of them, with the real hd's
+softmax scale) and :func:`decode_attention_plain` on CPU tensors.
+``launches`` counts kernel launches. The kernel splits each slot's cache into chunks of
 :data:`CHUNK` entries. The wrapper keeps, per device, the scratch for the
 chunks' partials and a zeroed ticket buffer, which each launch leaves
 zeroed; both are made (or grown) on a call, so before any CUDA-graph
@@ -28,7 +30,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)   # the kernel's instances (csrc/decode_attention.cu)
+MAX_HD = HEAD_DIMS[-1]
 CHUNK = 64             # cache entries per CTA (kChunk in csrc/decode_attention.cu)
 MIN_SCRATCH = 1 << 18  # ticket ints and partial floats that a device's first scratch holds
 launches = 0
@@ -54,9 +57,25 @@ def _launch_fn():
     fn = _build.library("decode_attention").decode_attention_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = i
     return fn
+
+
+def instance_hd(hd: int) -> int:
+    """The kernel instance a head dim runs on: the smallest of
+    :data:`HEAD_DIMS` that holds it. Raises above :data:`MAX_HD`."""
+    for n in HEAD_DIMS:
+        if hd <= n:
+            return n
+    raise ValueError(f"the attention kernels take hd <= {MAX_HD}, got hd={hd}")
+
+
+def pad_hd(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t (..., hd) zero-padded on its last dim to n: a zero lane adds 0 to
+    every score and gives a zero output column."""
+    hd = t.shape[-1]
+    return t if hd == n else torch.nn.functional.pad(t, (0, n - hd)).contiguous()
 
 
 def _scratch_for(device, n_tickets: int, n_partials: int):
@@ -88,17 +107,16 @@ def decode_attention(q, k_cache, v_cache, cache_len):
                          f"{tuple(cache_len.shape)}")
     if _build.on_cpu("decode_attention", q, k_cache, v_cache, cache_len):
         return decode_attention_plain(q, k_cache, v_cache, cache_len)
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: the kernel takes hd in {HEAD_DIMS}, "
-                         f"got hd={hd}")
+    n = instance_hd(hd)
     _build.check_kernel_inputs("decode_attention", torch.float32,
                                q, k_cache, v_cache)
     _build.check_kernel_inputs("decode_attention", torch.int32, cache_len)
+    q, k_cache, v_cache = (pad_hd(t, n) for t in (q, k_cache, v_cache))
     out = torch.empty_like(q)
-    scratch = _scratch_for(q.device, B * KV, B * H * -(-W // CHUNK) * (hd + 2))
+    scratch = _scratch_for(q.device, B * KV, B * H * -(-W // CHUNK) * (n + 2))
     rc = _launch_fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                       cache_len.data_ptr(), out.data_ptr(), scratch[3], scratch[2],
-                      B, H, W, KV, hd, _build.stream_ptr(q.device))
+                      B, H, W, KV, n, 1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
     launches += 1
     _build.check(rc, "decode_attention")
-    return out
+    return out if n == hd else out[..., :hd].contiguous()

@@ -6,9 +6,11 @@ and on the card of the reference model's ``plain_attention`` /
 causal (optionally with a bidirectional prefix of ``prefix_len`` positions),
 optional sliding ``window``, GQA.
 
-:func:`prefill_attention` runs the CUDA kernel on CUDA tensors and
-:func:`prefill_attention_plain` on CPU tensors. ``launches`` counts kernel
-launches.
+:func:`prefill_attention` runs the CUDA kernel on CUDA tensors (any hd up
+to 256: built for the same widths as B2, ``decode_attention.HEAD_DIMS``, any
+other hd zero-padded to the next of them with the real hd's softmax scale)
+and :func:`prefill_attention_plain` on CPU tensors.
+``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import instance_hd, pad_hd
 
-HEAD_DIMS = (64, 128)
 launches = 0
 
 
@@ -64,7 +66,7 @@ def _launch_fn():
     if _fn is None:
         fn = _build.library("prefill_attention").prefill_attention_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = i
         _fn = fn
     return _fn
@@ -83,14 +85,13 @@ def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if _build.on_cpu("prefill_attention", q, k, v):
         return prefill_attention_plain(q, k, v, causal=causal, window=window,
                                        prefix_len=prefix_len)
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"prefill_attention: the kernel takes hd in "
-                         f"{HEAD_DIMS}, got {hd}")
+    n = instance_hd(hd)
     _build.check_kernel_inputs("prefill_attention", torch.float32, q, k, v)
+    q, k, v = (pad_hd(t, n) for t in (q, k, v))
     out = torch.empty_like(q)
     rc = _launch_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                      B, S, H, KV, hd, int(causal), int(window), int(prefix_len),
-                      _build.stream_ptr(q.device))
+                      B, S, H, KV, n, int(causal), int(window), int(prefix_len),
+                      1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
     _build.check(rc, "prefill_attention")
     launches += 1
-    return out
+    return out if n == hd else out[..., :hd].contiguous()

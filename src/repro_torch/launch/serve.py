@@ -135,7 +135,8 @@ def build_stack(retriever: str, *, n_docs: int = 20000,
     """Model + corpus + retriever + workload, validated against the
     capability table. The defaults build the reference's reduced stack
     (2 layers, d_model 256, vocab 512); ``full_width=True`` builds ``arch``
-    exactly as published. Parameters come from a ``torch.Generator`` seeded
+    exactly as published. ``arch`` may name any config of the registry but
+    the audio one: dense, MoE, SSM, hybrid and VLM models are served. Parameters come from a ``torch.Generator`` seeded
     with ``seed`` on ``device`` (default CUDA).
 
     With ``workload='knnlm'`` the KB is a (context -> next token) datastore

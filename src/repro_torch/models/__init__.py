@@ -1,1 +1,2 @@
-"""The dense decoder family: layers, model assembly, parameter conversion."""
+"""The decoder families of the serving path: layers, the MoE FFN, the
+recurrent mixers, model assembly, parameter conversion."""

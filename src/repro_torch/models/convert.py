@@ -10,6 +10,10 @@ caller (this module imports nothing of JAX), and returns the dict
   position j, stacked along a leading axis when they repeat more than once
   (its ``Model._layer_params``); :func:`layer_plan` gives the same split here;
 * weights are ``(d_in, d_out)`` in both packages, so no matrix is transposed.
+
+Every leaf is taken as it is, nested dicts included: a MoE layer's router
+(d, E), its stacked experts (E, d, f) / (E, f, d) and its ``shared`` expert,
+and the Mamba, mLSTM and sLSTM mixers' parameters (``models.ssm``).
 """
 from __future__ import annotations
 

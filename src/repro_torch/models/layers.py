@@ -1,5 +1,6 @@
-"""Building blocks of the dense decoder, as plain functions over parameter
-dicts (the reference's ``repro.models.layers``, dense subset).
+"""Building blocks of the decoder, as plain functions over parameter dicts
+(the reference's ``repro.models.layers``, less its audio-only pieces: cross
+attention and sinusoidal positions).
 
 Weights keep the reference layout, ``(d_in, d_out)``, so ``x @ w`` here is the
 reference's ``einsum("...d,df->...f")``. Attention goes through the kernel
@@ -10,11 +11,44 @@ version on the CPU.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.prefill_attention import prefill_attention
+
+
+def normal(gen: torch.Generator, shape, scale: float, dtype=torch.float32) -> torch.Tensor:
+    """Normal draws times ``scale`` on the generator's device: the reference's
+    ``jax.random.normal(...) * scale`` init (other numbers from the same
+    seed)."""
+    return (torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32) * scale).to(dtype)
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32) -> dict:
+    return {"w_gate": normal(gen, (d_model, d_ff), 1.0 / math.sqrt(d_model), dtype),
+            "w_up": normal(gen, (d_model, d_ff), 1.0 / math.sqrt(d_model), dtype),
+            "w_down": normal(gen, (d_ff, d_model), 1.0 / math.sqrt(d_ff), dtype)}
+
+
+def init_attention(gen: torch.Generator, cfg, dtype=torch.float32) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = gen.device
+    p = {"wq": normal(gen, (d, H * hd), 1.0 / math.sqrt(d), dtype),
+         "wk": normal(gen, (d, KV * hd), 1.0 / math.sqrt(d), dtype),
+         "wv": normal(gen, (d, KV * hd), 1.0 / math.sqrt(d), dtype),
+         "wo": normal(gen, (H * hd, d), 1.0 / math.sqrt(H * hd), dtype)}
+    if cfg.qkv_bias:
+        p.update(bq=torch.zeros((H * hd,), dtype=dtype, device=dev),
+                 bk=torch.zeros((KV * hd,), dtype=dtype, device=dev),
+                 bv=torch.zeros((KV * hd,), dtype=dtype, device=dev))
+    if cfg.qk_norm:
+        p.update(q_norm=torch.ones((hd,), dtype=dtype, device=dev),
+                 k_norm=torch.ones((hd,), dtype=dtype, device=dev))
+    return p
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -94,7 +128,9 @@ def self_attention_qkv(p: dict, cfg, x: torch.Tensor, rope):
 
 def attend_full(p: dict, q, k, v, *, causal=True, window=0, prefix_len=0):
     """Full-sequence attention through the prefill kernel, then W_o. One
-    kernel stands for the reference's plain and blockwise forms alike."""
+    kernel stands for the reference's plain and blockwise forms alike;
+    ``prefix_len`` > 0 lets the first positions (a VLM's image patches)
+    attend to each other both ways, the prefix-LM mask."""
     B, S = q.shape[0], q.shape[1]
     out = prefill_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=causal, window=window, prefix_len=prefix_len)

@@ -1,31 +1,57 @@
-"""Model assembly for the dense decoder family (the reference's
-``repro.models.model.Model``, dense subset): ``init``, ``init_decode_state``,
-``prefill`` and ``decode_step`` with its ring-buffer KV cache.
+"""Model assembly for the decoder families the serving path runs (the
+reference's ``repro.models.model.Model``): dense, MoE, SSM (xLSTM), hybrid
+(Jamba: Mamba, attention and MoE) and VLM (PaliGemma: image patches as a
+bidirectional prefix). ``init``, ``init_decode_state``, ``prefill`` and
+``decode_step``; the audio family, ``forward`` and ``decode_step_stacked``
+are not ported yet (ROADMAP.md).
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
 ``unembed`` (d, V) unless embeddings are tied, and ``layers``, one dict per
-layer (``norm1``, ``mixer`` {wq, wk, wv, wo[, bq, bk, bv][, q_norm, k_norm]},
-``norm2``, ``ffn`` {w_gate, w_up, w_down}). The reference stacks its layers
-for ``lax.scan``; ``repro_torch.models.convert`` unstacks them.
+layer: ``norm1``, ``mixer`` (attention {wq, wk, wv, wo[, bq, bk, bv][,
+q_norm, k_norm]}, or a Mamba / mLSTM / sLSTM mixer from ``models.ssm``),
+and ``norm2`` with ``moe`` (``models.moe``) or ``ffn`` {w_gate, w_up,
+w_down} where the layer has one. The reference stacks its layers for
+``lax.scan``; ``repro_torch.models.convert`` unstacks them.
 
-The decode state is a list with one ``{"k", "v"}`` dict per layer, each
-(B, W, KV, hd). Every method returns new tensors and never writes into the
-state it was given, so a state held by an engine snapshot stays valid.
+The decode state is a list with one dict per layer: ``{"k", "v"}`` ring
+caches (B, W, KV, hd) for attention, ``{"ssm": {...}}`` for a recurrent
+mixer. Every method returns new tensors and never writes into the state it
+was given, so a state held by an engine snapshot stays valid.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 
-# the families whose forward pass this module ports; the rest of the zoo
-# (MoE, SSM, audio, VLM) is later work (ROADMAP.md)
-PORTED_FAMILIES = ("dense",)
+# the families whose serving path this module ports; audio (cross-attention
+# over an encoder) is later work (ROADMAP.md)
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+
+
+class _Recurrent(NamedTuple):
+    """A recurrent mixer kind's functions (``models.ssm``)."""
+    init: Callable            # (gen, cfg, dtype) -> params
+    apply: Callable           # (params, cfg, x (B, S, d)) -> (B, S, d)
+    init_state: Callable      # (cfg, batch, device, dtype) -> state
+    step: Callable            # (params, cfg, x (B, 1, d), state) -> (out, state)
+    final_state: Callable     # (params, cfg, x (B, S, d)) -> state after x
+
+
+_RECURRENT = {
+    "mamba": _Recurrent(SSM.init_mamba, SSM.apply_mamba, SSM.init_mamba_state,
+                        SSM.apply_mamba_step, SSM.mamba_final_state),
+    "mlstm": _Recurrent(SSM.init_mlstm, SSM.apply_mlstm, SSM.init_mlstm_state,
+                        SSM.apply_mlstm_step, SSM.mlstm_final_state),
+    "slstm": _Recurrent(SSM.init_slstm, SSM.apply_slstm, SSM.init_slstm_state,
+                        SSM.apply_slstm_step, SSM.slstm_final_state),
+}
 
 
 def signatures(cfg: ModelConfig) -> list:
@@ -36,7 +62,9 @@ def signatures(cfg: ModelConfig) -> list:
 
 def layer_plan(cfg: ModelConfig) -> Tuple[int, int, int]:
     """(n_prefix_singles, period, n_repeats) of the reference's stacked
-    parameter layout; n_prefix + period * n_repeats == num_layers."""
+    parameter layout; n_prefix + period * n_repeats == num_layers. A hybrid
+    stacks its period (Jamba: 8 layers); kimi-k2's dense first layer is a
+    single in the prefix."""
     sigs = signatures(cfg)
     LY = len(sigs)
     for p in range(1, min(8, LY) + 1):
@@ -48,9 +76,35 @@ def layer_plan(cfg: ModelConfig) -> Tuple[int, int, int]:
     return LY, 1, 0
 
 
-def _normal(gen, shape, scale, device, dtype):
-    return (torch.randn(shape, generator=gen, device=device,
-                        dtype=torch.float32) * scale).to(dtype)
+def _init_block(gen, cfg: ModelConfig, sig, dtype) -> dict:
+    kind, has_moe = sig
+    d = cfg.d_model
+    ones = torch.ones((d,), dtype=dtype, device=gen.device)
+    p = {"norm1": ones,
+         "mixer": (L.init_attention(gen, cfg, dtype) if kind == "attn"
+                   else _RECURRENT[kind].init(gen, cfg, dtype))}
+    if has_moe:
+        p.update(norm2=ones.clone(), moe=MOE.init_moe(gen, cfg, dtype))
+    elif cfg.d_ff > 0:
+        p.update(norm2=ones.clone(), ffn=L.init_mlp(gen, d, cfg.d_ff, dtype))
+    return p
+
+
+def _init_layer_state(cfg: ModelConfig, sig, batch: int, window: int, device,
+                      dtype) -> dict:
+    kind = sig[0]
+    if kind == "attn":
+        shape = (batch, window, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, device=device, dtype=dtype),
+                "v": torch.zeros(shape, device=device, dtype=dtype)}
+    return {"ssm": _RECURRENT[kind].init_state(cfg, batch, device, dtype)}
+
+
+def _final_state(mp: dict, cfg: ModelConfig, kind: str, h: torch.Tensor) -> dict:
+    """The recurrent state after consuming h (B, S, d), stepping token by
+    token from the zero state as decode does (the reference's stepwise
+    ``lax.scan``), for the decode steps that follow a prefill."""
+    return _RECURRENT[kind].final_state(mp, cfg, h)
 
 
 @dataclass(frozen=True)
@@ -70,34 +124,13 @@ class Model:
         ``jax.random`` and torch draw different numbers, so compare with the
         reference only through ``convert.params_from_reference``."""
         cfg = self.cfg
-        device = generator.device
-        d, H, KV, hd, F = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                           cfg.head_dim, cfg.d_ff)
-        ones = lambda n: torch.ones((n,), device=device, dtype=dtype)   # noqa: E731
-        zeros = lambda n: torch.zeros((n,), device=device, dtype=dtype)  # noqa: E731
-        nrm = lambda shape, sc: _normal(generator, shape, sc, device, dtype)  # noqa: E731
-        params = {"embed": nrm((cfg.vocab_size, d), 1.0 / math.sqrt(d)),
-                  "final_norm": ones(d)}
+        d = cfg.d_model
+        params = {"embed": L.normal(generator, (cfg.vocab_size, d), d ** -0.5, dtype),
+                  "final_norm": torch.ones((d,), dtype=dtype, device=generator.device)}
         if not cfg.tie_embeddings:
-            params["unembed"] = nrm((d, cfg.vocab_size), 1.0 / math.sqrt(d))
-        layers = []
-        for _ in range(cfg.num_layers):
-            mixer = {"wq": nrm((d, H * hd), 1.0 / math.sqrt(d)),
-                     "wk": nrm((d, KV * hd), 1.0 / math.sqrt(d)),
-                     "wv": nrm((d, KV * hd), 1.0 / math.sqrt(d)),
-                     "wo": nrm((H * hd, d), 1.0 / math.sqrt(H * hd))}
-            if cfg.qkv_bias:
-                mixer.update(bq=zeros(H * hd), bk=zeros(KV * hd), bv=zeros(KV * hd))
-            if cfg.qk_norm:
-                mixer.update(q_norm=ones(hd), k_norm=ones(hd))
-            blk = {"norm1": ones(d), "mixer": mixer}
-            if F > 0:
-                blk["norm2"] = ones(d)
-                blk["ffn"] = {"w_gate": nrm((d, F), 1.0 / math.sqrt(d)),
-                              "w_up": nrm((d, F), 1.0 / math.sqrt(d)),
-                              "w_down": nrm((F, d), 1.0 / math.sqrt(F))}
-            layers.append(blk)
-        params["layers"] = layers
+            params["unembed"] = L.normal(generator, (d, cfg.vocab_size), d ** -0.5, dtype)
+        params["layers"] = [_init_block(generator, cfg, sig, dtype)
+                            for sig in signatures(cfg)]
         return params
 
     def _unembed(self, params, x):
@@ -105,19 +138,31 @@ class Model:
         return x @ w
 
     def _ffn(self, bp, x):
+        """The block's second half: the dropless MoE (serving's exact form) or
+        the SwiGLU FFN, after its norm; layers with neither pass x through."""
+        if "moe" in bp:
+            h, _ = MOE.apply_moe_exact(bp["moe"], self.cfg,
+                                       L.rms_norm(x, bp["norm2"], self.cfg.norm_eps))
+            return x + h
         if "ffn" in bp:
             x = x + L.apply_mlp(bp["ffn"], L.rms_norm(x, bp["norm2"],
                                                       self.cfg.norm_eps))
         return x
 
+    def _embed_inputs(self, params, tokens, extra: Optional[dict]):
+        """Token embeddings; a VLM's ``extra["patches"]`` (B, P, d) go in
+        front as a prefix that attends both ways. -> (x, prefix_len)."""
+        x = params["embed"][tokens]
+        if self.cfg.family == "vlm" and extra is not None and "patches" in extra:
+            patches = extra["patches"].to(device=x.device, dtype=x.dtype)
+            return torch.cat([patches, x], dim=1), patches.shape[1]
+        return x, 0
+
     # ---- decode state -----------------------------------------------------------------
     def init_decode_state(self, batch: int, window: int, device=None,
                           dtype=torch.float32) -> list:
-        cfg = self.cfg
-        shape = (batch, window, cfg.num_kv_heads, cfg.head_dim)
-        return [{"k": torch.zeros(shape, device=device, dtype=dtype),
-                 "v": torch.zeros(shape, device=device, dtype=dtype)}
-                for _ in range(cfg.num_layers)]
+        return [_init_layer_state(self.cfg, sig, batch, window, device, dtype)
+                for sig in signatures(self.cfg)]
 
     @staticmethod
     def _ring(W: int, pos, batch: int, device):
@@ -132,56 +177,73 @@ class Model:
     # ---- decode (serving path) --------------------------------------------------------
     def decode_step(self, params, state: list, token: torch.Tensor, pos):
         """token (B,) ints; pos an int shared by the batch, or per-slot (B,)
-        positions. -> (logits (B, V), new state)."""
+        positions. -> (logits (B, V), new state). The ring window is read
+        from the first attention layer's cache (every attention layer has the
+        same one; a model may have none, or start with a recurrent layer);
+        recurrent layers step their state."""
         cfg = self.cfg
         x = params["embed"][token.long()][:, None]                 # (B, 1, d)
         B = x.shape[0]
-        W = state[0]["k"].shape[1]
-        write_idx, cache_len = self._ring(W, pos, B, x.device)
-        rope = L.rope_tables(L.decode_positions(pos, B, x.device), cfg.head_dim,
-                             cfg.rope_theta)
+        rope = ring = None
         new_state = []
-        for bp, st in zip(params["layers"], state):
+        for bp, sig, st in zip(params["layers"], signatures(cfg), state):
             h = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
-            h, k_new, v_new = L.apply_self_attention_decode(
-                bp["mixer"], cfg, h, pos, st["k"], st["v"], cache_len, write_idx,
-                rope=rope)
+            if sig[0] == "attn":
+                if ring is None:
+                    ring = self._ring(st["k"].shape[1], pos, B, x.device)
+                    rope = L.rope_tables(L.decode_positions(pos, B, x.device),
+                                         cfg.head_dim, cfg.rope_theta)
+                write_idx, cache_len = ring
+                h, k_new, v_new = L.apply_self_attention_decode(
+                    bp["mixer"], cfg, h, pos, st["k"], st["v"], cache_len, write_idx,
+                    rope=rope)
+                st = {"k": k_new, "v": v_new}
+            else:
+                h, ssm = _RECURRENT[sig[0]].step(bp["mixer"], cfg, h, st["ssm"])
+                st = {"ssm": ssm}
             x = self._ffn(bp, x + h)
-            new_state.append({"k": k_new, "v": v_new})
+            new_state.append(st)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._unembed(params, x)[:, 0], new_state
 
     # ---- prefill ----------------------------------------------------------------------
-    def prefill(self, params, tokens: torch.Tensor, *, window_cache: int = 0,
-                dtype=torch.float32):
+    def prefill(self, params, tokens: torch.Tensor, *, extra: Optional[dict] = None,
+                window_cache: int = 0, dtype=torch.float32):
         """Full-sequence walk that also builds the decode state.
 
-        tokens (B, S). Returns (last_logits (B, V), state list, next_pos S).
-        The default window leaves 512 slots of headroom, as the reference
-        does; when S > W only the last W positions are kept, rolled so that
-        position p sits at ring index p % W."""
+        tokens (B, S_text); a VLM may pass ``extra={"patches": (B, P, d)}``.
+        Returns (last_logits (B, V), state list, next_pos S), S counting the
+        patches. The default window leaves 512 slots of headroom, as the
+        reference does; when S > W only the last W positions are kept,
+        rolled so that position p sits at ring index p % W. A recurrent
+        layer's state is the one its decode step would reach after S
+        tokens."""
         cfg = self.cfg
-        tokens = tokens.long()
-        B, S = tokens.shape
+        x, prefix_len = self._embed_inputs(params, tokens.long(), extra)
+        B, S = x.shape[0], x.shape[1]
         W = window_cache or (S + 512)
-        x = params["embed"][tokens]
         rope = L.rope_tables(torch.arange(S, device=x.device)[None],
                              cfg.head_dim, cfg.rope_theta)
         state = []
         take = min(W, S)
-        for bp in params["layers"]:
+        for bp, sig in zip(params["layers"], signatures(cfg)):
             h = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
-            q, k, v = L.self_attention_qkv(bp["mixer"], cfg, h, rope)
-            kv = []
-            for t in (k, v):
-                t = t[:, S - take:].to(dtype)
-                if take < W:
-                    t = torch.cat([t, t.new_zeros((B, W - take) + t.shape[2:])], 1)
-                if S > W:
-                    t = torch.roll(t, S % W, dims=1)
-                kv.append(t.contiguous())
-            state.append({"k": kv[0], "v": kv[1]})
-            x = self._ffn(bp, x + L.attend_full(bp["mixer"], q, k, v))
+            if sig[0] == "attn":
+                q, k, v = L.self_attention_qkv(bp["mixer"], cfg, h, rope)
+                kv = []
+                for t in (k, v):
+                    t = t[:, S - take:].to(dtype)
+                    if take < W:
+                        t = torch.cat([t, t.new_zeros((B, W - take) + t.shape[2:])], 1)
+                    if S > W:
+                        t = torch.roll(t, S % W, dims=1)
+                    kv.append(t.contiguous())
+                state.append({"k": kv[0], "v": kv[1]})
+                h = L.attend_full(bp["mixer"], q, k, v, prefix_len=prefix_len)
+            else:
+                state.append({"ssm": _final_state(bp["mixer"], cfg, sig[0], h)})
+                h = _RECURRENT[sig[0]].apply(bp["mixer"], cfg, h)
+            x = self._ffn(bp, x + h)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._unembed(params, x[:, -1:])[:, 0], state, S
 

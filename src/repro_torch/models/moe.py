@@ -1,0 +1,84 @@
+"""Mixture-of-experts FFN, serving form (the reference's ``repro.models.moe``:
+``init_moe``, ``_router`` and the dropless ``apply_moe_exact``).
+
+``apply_moe_exact`` computes every expert for every token and weights the
+results by the router's renormalised top-k probabilities, so a token's output
+does not depend on which other tokens share its batch: prefill, decode and a
+re-decode after rollback agree. It reads every expert's weights on each call
+(O(T * E) work), which is what the serving path pays; the capacity dispatch
+that training uses is not ported yet (ROADMAP.md).
+
+Expert weights are stacked ``(E, d, f)`` / ``(E, f, d)`` as in the
+reference, and the dense products go to ``torch.matmul``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def _normal(gen, shape, scale, dtype):
+    return (torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32) * scale).to(dtype)
+
+
+def init_moe(gen: torch.Generator, cfg, dtype=torch.float32) -> dict:
+    """Random MoE parameters with the reference's shapes and scales: the
+    router (d, E) in fp32, the stacked experts, and the shared experts as
+    one SwiGLU of width ``d_expert * num_shared_experts``."""
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_expert, m.num_experts
+    sc_in, sc_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    p = {"router": _normal(gen, (d, E), sc_in, torch.float32),
+         "w_gate": _normal(gen, (E, d, f), sc_in, dtype),
+         "w_up": _normal(gen, (E, d, f), sc_in, dtype),
+         "w_down": _normal(gen, (E, f, d), sc_out, dtype)}
+    if m.num_shared_experts:
+        fs = f * m.num_shared_experts
+        p["shared"] = {"w_gate": _normal(gen, (d, fs), sc_in, dtype),
+                       "w_up": _normal(gen, (d, fs), sc_in, dtype),
+                       "w_down": _normal(gen, (fs, d), sc_out, dtype)}
+    return p
+
+
+def _router(p: dict, m, x2d: torch.Tensor):
+    """x2d (T, d) -> (weights (T, k), expert ids (T, k), aux loss): softmax
+    over the experts, top k, weights renormalised to sum to 1. The aux loss
+    (load balance + router z-loss) is the training objective's term."""
+    logits = x2d.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, m.top_k, dim=-1)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    E = probs.shape[-1]
+    me = probs.mean(0)
+    # the reference averages the first choices' counts over the experts too,
+    # so ce is a scalar
+    ce = (F.one_hot(topi[:, 0], E).float().sum(0) / max(probs.shape[0], 1)).mean()
+    lb = E * torch.sum(me * ce)
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return topw, topi, m.load_balance_loss * lb + m.router_z_loss * z
+
+
+def _swiglu(x, w_gate, w_up, w_down):
+    h = F.silu((x @ w_gate).float()).to(x.dtype) * (x @ w_up)
+    return h @ w_down
+
+
+def apply_moe_exact(p: dict, cfg, x: torch.Tensor):
+    """x (B, S, d) -> (out (B, S, d), aux loss). Every expert runs on every
+    token; the (T, E) weight matrix holds each token's top-k weights and
+    zeros elsewhere. The shared experts are added to every token."""
+    m = cfg.moe
+    B, S, d = x.shape
+    x2d = x.reshape(B * S, d)
+    topw, topi, aux = _router(p, m, x2d)
+    wmat = torch.zeros((B * S, m.num_experts), dtype=torch.float32, device=x.device)
+    wmat = wmat.scatter(1, topi, topw)
+    o = _swiglu(x2d, p["w_gate"], p["w_up"], p["w_down"])         # (E, T, d)
+    out = torch.einsum("etd,te->td", o.float(), wmat).reshape(B, S, d).to(x.dtype)
+    if m.num_shared_experts:
+        sp = p["shared"]
+        out = out + _swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"])
+    return out, aux

@@ -107,6 +107,28 @@ def test_decode_attention_kernel_matches_plain(cuda, H, KV, hd):
                                    rtol=0, atol=2e-5, msg=f"W={W} lens={lens}")
 
 
+# ROADMAP fault C3: every head dim of the repo's configs and of reduced()
+# (16, 32, 112, 256), and two that pad to an instance (40 -> 64, 200 -> 256)
+@pytest.mark.parametrize("hd", [16, 32, 112, 256, 40, 200])
+@pytest.mark.parametrize("H,KV", [(8, 1), (16, 4)])
+def test_decode_attention_kernel_matches_plain_at_every_head_dim(cuda, hd, H, KV):
+    """cache_len 0, the chunk edges, W and past W at W = 512 and 513, and
+    the fleet's lengths at B=4: within 2e-5 of the plain version, one launch
+    a call; each slot's row equals its B=1 call byte for byte."""
+    cases = [(512, [1, 97, 300, 512])] + [(W, _chunk_edges(W)) for W in (512, 513)]
+    for W, lens in cases:
+        q, kc, vc, cl = _decode_inputs(cuda, H + KV + hd + W, lens, W, H, KV, hd)
+        before = DA.launches
+        out = DA.decode_attention(q, kc, vc, cl)
+        assert DA.launches == before + 1
+        torch.testing.assert_close(out, DA.decode_attention_plain(q, kc, vc, cl),
+                                   rtol=0, atol=2e-5, msg=f"hd={hd} W={W} lens={lens}")
+        for b in range(len(lens)):
+            one = DA.decode_attention(q[b:b + 1], kc[b:b + 1], vc[b:b + 1],
+                                      cl[b:b + 1].clone())
+            assert torch.equal(one[0], out[b]), (hd, W, lens[b])
+
+
 @pytest.mark.parametrize("H,KV,hd", [(16, 16, 64), (24, 2, 128)])
 def test_decode_attention_rows_do_not_depend_on_the_batch(cuda, H, KV, hd):
     """Each slot's row of a batched call equals a B=1 call on that slot alone,
@@ -149,6 +171,30 @@ def test_prefill_attention_kernel_matches_plain(cuda, S, H, KV, hd, causal, wind
     k = torch.randn((2, S, KV, hd), generator=g, device=cuda)
     v = torch.randn((2, S, KV, hd), generator=g, device=cuda)
     kw = dict(causal=causal, window=window, prefix_len=prefix)
+    before = PA.launches
+    out = PA.prefill_attention(q, k, v, **kw)
+    assert PA.launches == before + 1
+    torch.testing.assert_close(out, PA.prefill_attention_plain(q, k, v, **kw),
+                               rtol=0, atol=2e-5)
+    for b in range(2):
+        assert torch.equal(PA.prefill_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw)[0],
+                           out[b])
+
+
+@pytest.mark.parametrize("hd", [16, 32, 112, 256, 40, 200])
+@pytest.mark.parametrize("S,H,KV,window,prefix", [
+    (160, 8, 1, 0, 0), (160, 8, 1, 64, 0), (160, 8, 1, 0, 37), (33, 16, 4, 0, 0),
+    (1, 8, 1, 0, 0), (513, 4, 2, 100, 0)])
+def test_prefill_attention_kernel_matches_plain_at_every_head_dim(cuda, hd, S, H, KV,
+                                                                  window, prefix):
+    """ROADMAP fault C3: B3 at the configs' head dims (and two padded ones),
+    causal, sliding window and prefix, paligemma's 8 / 1 heads: B=2 within
+    2e-5 of the plain version, each sequence's rows equal to a B=1 call's."""
+    g = torch.Generator(device=cuda).manual_seed(S + H + hd + window + prefix)
+    q = torch.randn((2, S, H, hd), generator=g, device=cuda)
+    k = torch.randn((2, S, KV, hd), generator=g, device=cuda)
+    v = torch.randn((2, S, KV, hd), generator=g, device=cuda)
+    kw = dict(causal=True, window=window, prefix_len=prefix)
     before = PA.launches
     out = PA.prefill_attention(q, k, v, **kw)
     assert PA.launches == before + 1
@@ -261,8 +307,9 @@ def test_gathered_and_int8_backends_on_cuda_match_numpy(cuda):
 
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     """What the kernels still refuse: non-contiguous input, a wrong dtype,
-    an attention head width they were not built for. Any d and any k <= N
-    (<= C, or more, for the gathered scans) are taken."""
+    an attention head width above 256 (no config has one). Any d and any
+    k <= N (<= C, or more, for the gathered scans) are taken, and any head
+    width up to 256."""
     with pytest.raises(ValueError, match="contiguous"):
         DT.dense_topk(torch.zeros((8, 2), device=cuda).T,
                       torch.zeros((300, 8), device=cuda), 1)
@@ -273,10 +320,13 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="float32"):
         DT.dense_topk(torch.zeros((1, 8), dtype=torch.float64, device=cuda),
                       torch.zeros((300, 8), device=cuda), 1)
-    q = torch.zeros((1, 2, 32), device=cuda)
-    kc = torch.zeros((1, 8, 2, 32), device=cuda)
-    with pytest.raises(ValueError, match="hd in"):
+    q = torch.zeros((1, 2, 264), device=cuda)
+    kc = torch.zeros((1, 8, 2, 264), device=cuda)
+    with pytest.raises(ValueError, match="hd <= 256"):
         DA.decode_attention(q, kc, kc, torch.ones(1, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="hd <= 256"):
+        PA.prefill_attention(q[:, None].contiguous(), kc[:, :1].contiguous(),
+                             kc[:, :1].contiguous())
     cand = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError, match="int8"):
         GT.quant_fused_gathered_topk(torch.zeros((1, 8), device=cuda),
@@ -531,3 +581,34 @@ def test_knnlm_fleet_on_cuda_token_matches_knnlmseq(cuda):
         assert [r.tokens for r in fr.results] == want, (sched, rounds)
         assert DT.launches - calls == fr.kb_calls
         assert fr.kb_calls == fr.rounds + (fr.seed_calls if sched == "continuous" else 1)
+
+
+# ---------------------------------------------------------------------------------
+# the MoE, SSM, hybrid and VLM families on the card
+# ---------------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "qwen2-moe-a2.7b", "xlstm-350m",
+                                  "paligemma-3b"])
+def test_new_families_fleet_on_cuda_matches_ralmseq(cuda, arch):
+    """A reduced stack of each newly served family on the card (Jamba:
+    Mamba, attention and MoE layers in one model): the 3-slot psa fleet
+    gives RaLMSeq's tokens with one merged B1 call per round; B1 is
+    launched, and B2 and B3 wherever the model has attention."""
+    import dataclasses
+    from repro_torch.configs import RaLMConfig
+    from repro_torch.launch.serve import build_stack, make_server, variant_config
+    from repro_torch.training.data import make_queries
+    st = build_stack("edr", n_docs=600, arch=arch, backend="kernel", device=cuda,
+                     rcfg=RaLMConfig(max_new_tokens=16))
+    prompts = [(q * 12)[:40] for q in make_queries(st.docs, 3)]
+    c0 = (DT.launches, DA.launches, PA.launches)
+    want = [make_server(st, scheduler="seq").serve(p).tokens for p in prompts]
+    assert all(len(t) == 16 for t in want)
+    attn = "attn" in st.cfg.layer_kinds()
+    assert DT.launches > c0[0]
+    assert (DA.launches > c0[1]) == attn and (PA.launches > c0[2]) == attn
+    fleet_st = dataclasses.replace(st, engine=None, rcfg=variant_config("psa", st.rcfg))
+    with make_server(fleet_st, scheduler="fixed", n_slots=3) as fleet:
+        calls = DT.launches
+        fr = fleet.serve(prompts)
+    assert [r.tokens for r in fr.results] == want
+    assert DT.launches - calls == fr.kb_calls == fr.rounds + 1

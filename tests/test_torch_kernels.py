@@ -207,8 +207,10 @@ def test_gathered_wrappers_pad_d_and_take_any_k(monkeypatch, d, k):
 
 @pytest.mark.parametrize("case", ["hd", "dtype", "contiguous"])
 def test_prefill_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch, case):
+    """A wrong dtype, non-contiguous input, and a head dim above the widest
+    kernel instance (256; no config has one) raise before any launch."""
     _kernel_path(monkeypatch)
-    hd = 32 if case == "hd" else 64
+    hd = 264 if case == "hd" else 64
     q = torch.zeros((1, 8, 4, hd), dtype=torch.float64 if case == "dtype" else torch.float32)
     k = torch.zeros((1, 8, 2, hd))
     if case == "contiguous":
@@ -436,6 +438,76 @@ def test_decode_attention_plain_matches_pallas(B, H, KV, hd, W):
     if B == 5:
         np.testing.assert_allclose(out[4].numpy(), vc[4].mean(0).repeat(H // KV, 0),
                                    rtol=1e-5, atol=1e-5)
+
+
+# ROADMAP fault C3: B2 and B3 at the head dims of the repo's configs and of
+# reduced() (kimi-k2's 112, paligemma's and xlstm's 256, reduced 16 and 32)
+@pytest.mark.parametrize("hd", [16, 32, 112, 256])
+def test_decode_attention_plain_matches_pallas_at_every_head_dim(hd):
+    """GQA 8 / 1 (paligemma's), per-row cache_len with a 0 row (the mean of
+    v over the window) and a row past the window."""
+    B, H, KV, W = 4, 8, 1, 96
+    rng = np.random.default_rng(hd)
+    q = rng.standard_normal((B, H, hd)).astype(np.float32)
+    kc = rng.standard_normal((B, W, KV, hd)).astype(np.float32)
+    vc = rng.standard_normal((B, W, KV, hd)).astype(np.float32)
+    cl = np.asarray([1, 65, 0, W + 9], np.int32)
+    ref = decode_attention_pallas(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                                  jnp.asarray(cl), block_w=32, interpret=True)
+    out = DA.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                              torch.from_numpy(vc), torch.from_numpy(cl))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 112, 256])
+@pytest.mark.parametrize("window,prefix", [(0, 0), (24, 0), (0, 19)])
+def test_prefill_attention_plain_matches_pallas_at_every_head_dim(hd, window, prefix):
+    """Causal, sliding window and bidirectional prefix, 8 query heads over
+    one KV head."""
+    B, S, H, KV = 1, 70, 8, 1
+    rng = np.random.default_rng(hd + window + prefix)
+    q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, hd)).astype(np.float32)
+    kw = dict(causal=True, window=window, prefix_len=prefix)
+    ref = prefill_attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   bq=32, bk=32, interpret=True, **kw)
+    out = PA.prefill_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hd,instance", [(16, 16), (40, 64), (112, 112), (200, 256),
+                                         (6, 16)])
+def test_attention_wrappers_pad_hd_to_a_kernel_instance(monkeypatch, hd, instance):
+    """On the kernel path every hd <= 256 reaches a launch: the kernels'
+    own widths as they are, any other zero-padded to the next instance, with
+    the softmax scale of the real hd; the output comes back at hd."""
+    from repro_torch.kernels import _build
+    seen = []
+
+    class Lib:
+        def __getattr__(self, entry):
+            def launch(*args):
+                seen.append((entry, args))
+                return 0
+            launch.argtypes = None
+            return launch
+    monkeypatch.setattr(_build, "on_cpu", lambda *_: False)
+    monkeypatch.setattr(_build, "library", lambda name: Lib())
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(DA, "_scratch_for", lambda *a: (None, None, 0, 0, 0, 0))
+    monkeypatch.setattr(PA, "_fn", None)
+    q, kc = torch.zeros((2, 4, hd)), torch.zeros((2, 9, 2, hd))
+    out = DA.decode_attention(q, kc, kc, torch.ones(2, dtype=torch.int32))
+    assert out.shape == (2, 4, hd)
+    qs, ks = torch.zeros((1, 5, 4, hd)), torch.zeros((1, 5, 2, hd))
+    out = PA.prefill_attention(qs, ks, ks)
+    assert out.shape == (1, 5, 4, hd)
+    (e1, a1), (e2, a2) = seen
+    assert e1 == "decode_attention_launch" and a1[11] == instance
+    assert e2 == "prefill_attention_launch" and a2[8] == instance
+    assert a1[12] == a2[12] == pytest.approx(1.0 / np.sqrt(hd), rel=1e-12)
 
 
 def test_decode_attention_ignores_slots_past_cache_len():

@@ -271,7 +271,8 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
         "print(len(mods), bad)\n"
         "assert len(mods) >= 20 and not bad, bad\n"
         "assert {'repro_torch.core.knnlm', 'repro_torch.serving.continuous', "
-        "'repro_torch.retrieval.faults'} <= set(mods), mods\n")
+        "'repro_torch.retrieval.faults', 'repro_torch.models.moe', "
+        "'repro_torch.models.ssm'} <= set(mods), mods\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
