@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # every phase below
-    python3 chip_smoke.py --src DIR    # phases 1-3 only, for the src/ tree DIR
+    python3 chip_smoke.py                  # every phase below
+    python3 chip_smoke.py --src DIR        # phases 1-3 only, for the src/ tree DIR
+    python3 chip_smoke.py --across-cards   # the sharded backends with a shard on
+                                           # every card (more than one card)
 
 1. device: the card's name, its power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the four CUDA sources from ``src/repro_torch/kernels/csrc``
@@ -19,7 +21,15 @@
    byte, and 12 query heads per KV head at hd 128 with cache_len 0 and > W
    (ROADMAP fault C2); B2 and B3 at hd 256 (paligemma-3b's 8 / 1 heads,
    timed), 112 and 32, at cache_len 0 and past W, causal, windowed and with
-   a prefix (ROADMAP fault C3). A tree run with --src that refuses k > 256,
+   a prefix (ROADMAP fault C3), and at hd 264, 384 and 512 through the
+   wide-head kernels (timed at hd 512 against SDPA, its backend named); B3
+   bidirectional at whisper-base's encoder shape (S = 1500, 8 / 8 heads at
+   hd 64), timed; the sharded backends against the unsharded kernel
+   backends byte for byte on the serving KB (``sharded`` == ``kernel``,
+   ``int8-sharded`` == ``int8-kernel``, S in {2, 3, 4}, B in {1, 4, 12}, k
+   in {1, 20, 300}, search and search_gathered over the ADR candidates), one
+   scan launch a shard, and one 4-shard search timed beside the unsharded
+   B1 at B = 4 and 12. A tree run with --src that refuses k > 256,
    such d, such heads or such head dims is checked without those shapes. Each
    kernel and one library call as its yardstick get two times: the device
    time (20 calls captured in a CUDA graph, the replay timed with CUDA
@@ -35,7 +45,12 @@
    then a 4-slot FleetServer (variant psa), checks that the tokens are
    identical and that the path's kernels were launched on it (counts set to 0
    just before the path and read just after); recall@20 of int8 against fp32
-   over the queries the int8 paths served. Then the EDR fleet with seeded
+   over the queries the int8 paths served. Then the sharded backends as
+   ``--mesh-shards 4`` builds them, the KB in 4 shards on the card: EDR
+   over ``sharded`` (8 prompts), ADR over it, EDR and ADR over
+   ``int8-sharded`` (4 prompts each), each path's tokens equal to its
+   unsharded backend's path's, one backend call a search and, on EDR, one
+   scan launch a shard a call (the backends freed after). Then the EDR fleet with seeded
    faults injected into its KB path (RaLMSeq's tokens, no round degraded);
    SR (BM25 over a 50k-passage SparseKB, RaLMSeq and the fleet); and KNN-LM:
    full-width knnlm-247m over a 1M x 1024 datastore, KNNLMSeq against the
@@ -47,9 +62,12 @@
    freed, three more model families at full width, each through
    ``build_stack(arch=..., full_width=True)`` over the same 500k KB,
    RaLMSeq against the 4-slot fleet on 4 prompts: qwen2-moe-a2.7b (MoE, 60
-   experts, B1-B3), xlstm-350m (mLSTM and sLSTM, no attention: B1) and
-   paligemma-3b (B1, and B2 and B3 at hd 256), each with its peak device
-   memory and one timed re-prefill; last, the engine checks (batch variance,
+   experts, B1-B3), xlstm-350m (mLSTM and sLSTM, no attention: B1),
+   paligemma-3b (B1, and B2 and B3 at hd 256) and whisper-base (6 encoder
+   and 6 decoder layers, its engines handing (1, 1500, 512) frames from
+   numpy seed 0 to every prefill: B1, B2, and B3 in the decoder and
+   bidirectionally in the encoder), each with its peak device memory and
+   one timed re-prefill (whisper's encoder share apart); last, the engine checks (batch variance,
    snapshot cost, a profiled decode step and re-prefill) on the gpt2
    weights drawn again from their seed;
 5. one JSON line with every kernel's numbers, the script's total seconds,
@@ -65,12 +83,14 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import importlib.util
 import itertools
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -292,6 +312,29 @@ def decode_bytes(lens, W: int, H: int, KV: int, hd: int) -> float:
     return 4.0 * (2 * B * H * hd + (2 * n + n_mean) * KV * hd + B)
 
 
+def sdpa_call(q, k, v, **kw):
+    """SDPA on (B, H, S, hd) tensors under the first of its backends, in the
+    dispatcher's order of preference, that takes these inputs (flash takes
+    no hd above 256 and no mask) -> (the call, the backend's name), so that
+    the time reported is the named backend's."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    order = [SDPBackend(i) for i in torch._C._get_sdp_priority_order()]
+    for b in (b for b in order if b != SDPBackend.OVERRIDEABLE):
+        def call(b=b):
+            with sdpa_kernel([b]):
+                return F.scaled_dot_product_attention(q, k, v, **kw)
+        try:
+            with warnings.catch_warnings():       # each refusal warns its reasons
+                warnings.simplefilter("ignore")
+                call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return call, b.name.lower()
+    raise RuntimeError("no SDPA backend takes these inputs")
+
+
 def time_decode(K, q, kc, vc, lens, gen) -> dict:
     """B2 at one shape against its plain version (2e-5), its device and call
     times, SDPA's, the plain version's, and the bound; where a slot fills
@@ -313,11 +356,11 @@ def time_decode(K, q, kc, vc, lens, gen) -> dict:
     ks = kc.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
     vs = vc.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
     mask = (torch.arange(W, device=q.device)[None] < lens[:, None])[:, None, None]
-    t = timed(lambda: K.decode_attention(q, kc, vc, lens),
-              lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+    lib, backend = sdpa_call(qs, ks, vs, attn_mask=mask)
+    t = timed(lambda: K.decode_attention(q, kc, vc, lens), lib)
     n = int(lens.clamp(max=W).sum())
     bms, by = bound_ms(decode_bytes(lens, W, H, KV, hd), 4.0 * n * H * hd)
-    r = dict(max_abs_err=err, plain_ms=plain, bound_ms=bms, bound_by=by,
+    r = dict(max_abs_err=err, plain_ms=plain, bound_ms=bms, bound_by=by, sdpa_backend=backend,
              shape=f"B={B} H={H} KV={KV} hd={hd} W={W} cache_len={lens.tolist()}", **t)
     cold = ""
     if int(lens.max()) == W:
@@ -332,8 +375,8 @@ def time_decode(K, q, kc, vc, lens, gen) -> dict:
         r["cold_device_ms"] = device_ms(rotating, launches=max(20, len(sets)))
         r["cold_sets"] = len(sets)
         cold = f"  cold L2 {r['cold_device_ms']:.4f} ms device ({len(sets)} caches)"
-    print(f"B2 decode_attention {r['shape']}: {fmt_times(t, 'SDPA')}  plain {plain:.4f} ms  "
-          f"bound {bms:.5f} ms ({by})  max abs err {err:.2e}{cold}")
+    print(f"B2 decode_attention {r['shape']}: {fmt_times(t, f'SDPA ({backend})')}  plain "
+          f"{plain:.4f} ms  bound {bms:.5f} ms ({by})  max abs err {err:.2e}{cold}")
     return r
 
 
@@ -457,17 +500,18 @@ def time_prefill(K, q, k, v, kw: dict, label: str) -> dict:
     err = (out - K.prefill_attention_plain(q, k, v, **kw)).abs().max().item()
     check(err <= 2e-5, f"B3 {label}: max abs err {err}")
     plain = cuda_ms(lambda: K.prefill_attention_plain(q, k, v, **kw))
-    lib = None
+    lib, backend = None, None
     if kw["window"] == 0 and kw["prefix_len"] == 0:
         qt = q.transpose(1, 2).contiguous()
         kt, vt = (t.transpose(1, 2).repeat_interleave(H // KV, 1).contiguous() for t in (k, v))
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+        lib, backend = sdpa_call(qt, kt, vt, is_causal=kw["causal"])
     t = timed(lambda: K.prefill_attention(q, k, v, **kw), lib)
     pairs = int(K.allowed_mask(S, S, device=q.device, **kw).sum())
     bms, by = bound_ms(4.0 * S * (2 * H + 2 * KV) * hd, 4.0 * pairs * H * hd)
-    print(f"B3 prefill_attention {label}: {fmt_times(t, 'SDPA')}  plain {plain:.4f} ms  "
-          f"bound {bms:.5f} ms ({by})  max abs err {err:.2e}")
-    return dict(max_abs_err=err, plain_ms=plain, bound_ms=bms, bound_by=by, shape=label, **t)
+    print(f"B3 prefill_attention {label}: {fmt_times(t, f'SDPA ({backend})')}  plain "
+          f"{plain:.4f} ms  bound {bms:.5f} ms ({by})  max abs err {err:.2e}")
+    return dict(max_abs_err=err, plain_ms=plain, bound_ms=bms, bound_by=by, shape=label,
+                sdpa_backend=backend, **t)
 
 
 def check_head_dims(dev, report: dict) -> None:
@@ -513,6 +557,199 @@ def check_head_dims(dev, report: dict) -> None:
         print(f"C3 hd={hd} H={H} KV={KV}: B2 at cache_len {edge.tolist()} (W={W}) and B3 at "
               f"S={S} causal, window 64, prefix 37 within 2e-5 of plain; B2 rows == B=1 calls")
     print(f"C3: B2 and B3 at hd 256, 112 and 32: max abs err {worst:.2e}")
+
+
+def takes_wide_heads() -> bool:
+    """Whether B2 and B3 of the tree under test take hd > 256 (the rest of
+    ROADMAP fault C3; an older tree, run with --src, refuses it: those
+    checks are skipped)."""
+    from repro_torch.kernels import decode_attention
+    try:
+        return decode_attention.instance_hd(264) == 264
+    except (AttributeError, ValueError):      # no instance_hd, or it refuses hd 264
+        return False
+
+
+def check_wide_heads(dev, report: dict) -> None:
+    """The rest of ROADMAP fault C3: B2 and B3 above the widest instance, at
+    hd 264, 384 and 512, through the wide-head kernels. B2 at cache_len 0, 1
+    and past W (and the chunk edges), each slot's row equal to its B=1
+    call; B3 causal, windowed, with a prefix and bidirectional; each within
+    2e-5 of the plain version. Timed at hd 512 against SDPA (under the
+    backend that takes hd 512, named): B2 at the fleet's B=4 (16 / 16
+    heads, W=512) and B3 at S=160 causal."""
+    from repro_torch.kernels import decode_attention as DK
+    from repro_torch.kernels import prefill_attention as PK
+    gen = torch.Generator(device=dev).manual_seed(11)
+    W, S = 512, 160
+    lens = torch.tensor([1, 97, 300, 512], dtype=torch.int32, device=dev)
+    q, kc, vc = decode_inputs(gen, 4, W, 16, 16, 512, dev)
+    before = DK.launches
+    report["decode_attention@hd512"] = time_decode(DK, q, kc, vc, lens, gen)
+    check(DK.launches > before, "B2 hd 512: no launch")
+    q, k, v = (torch.randn((1, S, 16, 512), generator=gen, device=dev) for _ in range(3))
+    report["prefill_attention@hd512"] = time_prefill(
+        PK, q, k, v, dict(causal=True, window=0, prefix_len=0),
+        f"B=1 S={S} H=KV=16 hd=512 causal")
+    edge = torch.tensor([0, 1, 63, 64, 65, W, W + 9], dtype=torch.int32, device=dev)
+    worst = 0.0
+    for hd, H, KV in ((264, 8, 1), (384, 16, 4), (512, 8, 2)):
+        q, kc, vc = decode_inputs(gen, len(edge), W, H, KV, hd, dev)
+        out = DK.decode_attention(q, kc, vc, edge)
+        err = (out - DK.decode_attention_plain(q, kc, vc, edge)).abs().max().item()
+        check(err <= 2e-5, f"B2 hd={hd} H={H} KV={KV} lens={edge.tolist()}: {err}")
+        for b in range(len(edge)):
+            one = DK.decode_attention(q[b:b + 1], kc[b:b + 1], vc[b:b + 1], edge[b:b + 1].clone())
+            check(torch.equal(one[0], out[b]), f"B2 hd={hd}: slot {b}'s B=1 row != its row")
+        worst = max(worst, err)
+        for causal, window, prefix in ((True, 0, 0), (True, 64, 0), (True, 0, 37),
+                                       (False, 0, 0)):
+            qq, kk, vv = (torch.randn((2, S, h, hd), generator=gen, device=dev)
+                          for h in (H, KV, KV))
+            kw = dict(causal=causal, window=window, prefix_len=prefix)
+            got = PK.prefill_attention(qq, kk, vv, **kw)
+            err = (got - PK.prefill_attention_plain(qq, kk, vv, **kw)).abs().max().item()
+            check(err <= 2e-5, f"B3 hd={hd} H={H} KV={KV} {kw}: {err}")
+            worst = max(worst, err)
+        print(f"C3 hd={hd} H={H} KV={KV} (wide-head kernels): B2 at cache_len {edge.tolist()} "
+              f"(W={W}) and B3 at S={S} causal, window 64, prefix 37 and bidirectional within "
+              f"2e-5 of plain; B2 rows == B=1 calls")
+    print(f"C3 above hd 256: B2 and B3 at hd 264, 384 and 512: max abs err {worst:.2e}")
+
+
+def check_encoder_prefill(dev, report: dict) -> None:
+    """B3 at whisper-base's encoder shape: B=1, S=1500 frames, 8 / 8 heads
+    at hd 64, bidirectional (``causal=False``), timed against SDPA."""
+    from repro_torch.kernels import prefill_attention as PK
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k, v = (torch.randn((1, 1500, 8, 64), generator=gen, device=dev) for _ in range(3))
+    report["prefill_attention@encoder"] = time_prefill(
+        PK, q, k, v, dict(causal=False, window=0, prefix_len=0),
+        "B=1 S=1500 H=KV=8 hd=64 bidirectional (whisper-base's encoder)")
+
+
+def same_as_unsharded(sh, whole, queries: np.ndarray, cands, label: str) -> None:
+    """A sharded backend against its unsharded one, byte for byte, at B in
+    {1, 4, 12} and k in {1, 20, 300}: search (launching its scan once a
+    shard) and search_gathered over ``cands(queries[:B], k)``."""
+    from repro_torch.kernels import dense_topk as DT
+    from repro_torch.kernels import quant_topk as QT
+    module = QT if sh.name.startswith("int8") else DT
+    for B in (1, 4, 12):
+        qs = queries[:B]
+        for k in (1, 20, 300):
+            before = module.launches
+            got = sh.search(qs, k)
+            check(module.launches - before == sh.n_shards,
+                  f"{label} B={B} k={k}: not one scan launch a shard")
+            want = whole.search(qs, k)
+            check(np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1]),
+                  f"{label} B={B} k={k}: search differs from {whole.name}")
+            cand = cands(qs, k)
+            got = sh.search_gathered(qs, cand, k)
+            want = whole.search_gathered(qs, cand, k)
+            check(np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1]),
+                  f"{label} B={B} k={k}: search_gathered differs from {whole.name}")
+
+
+def check_sharded(dev, kb_np: np.ndarray, fp32, qb, ivf, queries: np.ndarray,
+                  report: dict) -> None:
+    """``sharded`` against ``kernel`` and ``int8-sharded`` against
+    ``int8-kernel``, byte for byte, on the serving KB: S in {2, 3, 4} (3
+    does not divide 500,000), B in {1, 4, 12}, k in {1, 20, 300}, search
+    and search_gathered over the ADR index's candidate matrix of real
+    queries; a search launches its scan once a shard. Then one 4-shard
+    search (``retrieval.sharded.sharded_dense_topk``, the per-shard scans
+    and the merge) timed beside the unsharded kernel at B = 4 and 12, k = 20."""
+    from repro_torch.kernels import dense_topk as DT
+    from repro_torch.retrieval import sharded as SH
+    from repro_torch.retrieval.backends import QuantizedShardedBackend, ShardedBackend
+    N, d = kb_np.shape
+    for S in (2, 3, 4):
+        for cls, whole in ((ShardedBackend, fp32), (QuantizedShardedBackend, qb)):
+            sh = cls(kb_np, n_shards=S, device=dev)
+            check(sh.n_shards == S and all(r.is_cuda for r in sh._rows),
+                  f"{cls.name} S={S}: shards off the card")
+            same_as_unsharded(sh, whole, queries, lambda qs, k: ivf._gather_candidates(qs, k)[0],
+                              f"{cls.name} S={S}")
+            del sh
+        print(f"S={S}: sharded == kernel and int8-sharded == int8-kernel byte for byte "
+              f"(search, and search_gathered over the ADR candidates), B in {{1, 4, 12}}, "
+              f"k in {{1, 20, 300}}; one scan launch a shard")
+    sh = ShardedBackend(kb_np, n_shards=4, device=dev)
+    kb = fp32._kb
+    for B in (4, 12):
+        q = torch.as_tensor(queries[:B], device=dev)
+        t = timed(lambda: SH.sharded_dense_topk(q, sh._rows, 20, n_total=N),
+                  lambda: DT.dense_topk(q, kb, 20))
+        bms, by = bound_ms(4.0 * (N * d + B * d + 2 * B * 20), 2.0 * B * N * d)
+        print(f"4-shard search B={B} k=20 on one card: {fmt_times(t, 'unsharded B1')}  "
+              f"bound {bms:.4f} ms ({by})")
+        report.setdefault("dense_topk@4shards", {})[f"B={B}"] = dict(
+            shape=f"B={B} N={N} d={d} k=20, 4 shards on one card", bound_ms=bms,
+            bound_by=by, device_ms=t["device_ms"], call_ms=t["call_ms"],
+            unsharded_device_ms=t["library_device_ms"], unsharded_call_ms=t["library_call_ms"])
+    del sh
+    torch.cuda.empty_cache()
+
+
+def check_sharded_across_cards(N: int = SERVE_N_DOCS, d: int = SERVE_ENC_DIM,
+                               dev0=torch.device("cuda", 0)) -> None:
+    """``--across-cards``: the sharded backends with their shards
+    round-robin over every visible card (the default placement), the
+    queries and the merge on cuda:0, against the unsharded kernel backends
+    on cuda:0, byte for byte: one shard a card and 2 x cards + 1 shards
+    (several a card, the last short), B in {1, 4, 12}, k in {1, 20, 300},
+    search and search_gathered over random id-sorted candidate rows; each
+    search launches its scan once a shard. Then the host seconds of one
+    search at B=12, k=20, with every card synchronised, beside the
+    unsharded one's. The KB is random unit rows (the kernels' scores are
+    the same bytes whatever the rows), made on the host from numpy seed 13."""
+    from repro_torch.retrieval.backends import (QuantizedShardedBackend, ShardedBackend,
+                                                TorchKernelBackend,
+                                                TorchQuantizedKernelBackend)
+    cards = torch.cuda.device_count()
+    rng = np.random.default_rng(13)
+    kb = rng.standard_normal((N, d), dtype=np.float32)
+    kb /= np.linalg.norm(kb, axis=1, keepdims=True)
+    queries = kb[rng.choice(N, 12, replace=False)] + 0.1 * rng.standard_normal(
+        (12, d), dtype=np.float32)
+    C = min(40_000, N)
+    cand = np.full((12, C), -1, np.int64)
+    for b in range(12):
+        w = int(rng.integers(1, C))
+        cand[b, :w] = np.sort(rng.choice(N, size=w, replace=False))
+
+    def sync_all():
+        for i in range(cards):
+            torch.cuda.synchronize(i)
+
+    for cls, whole_cls in ((ShardedBackend, TorchKernelBackend),
+                           (QuantizedShardedBackend, TorchQuantizedKernelBackend)):
+        whole = whole_cls(kb, device=dev0)
+        for S in (cards, 2 * cards + 1):
+            sh = cls(kb, n_shards=S, device=dev0)
+            on = sorted({r.device.index for r in sh._rows})
+            check(on == list(range(cards)), f"{cls.name} S={S}: shards on cards {on}")
+            same_as_unsharded(sh, whole, queries, lambda qs, k: cand[:len(qs)],
+                              f"{cls.name} S={S} across {cards} cards")
+            times = {}
+            for name, be in (("sharded", sh), ("unsharded", whole)):
+                for _ in range(3):
+                    be.search(queries, 20)
+                sync_all()
+                t = time.perf_counter()
+                for _ in range(20):
+                    be.search(queries, 20)
+                sync_all()
+                times[name] = (time.perf_counter() - t) / 20 * 1e3
+            print(f"{cls.name} over {S} shards on {cards} cards == {whole_cls.name} on cuda:0 "
+                  f"byte for byte (search and search_gathered, B in {{1, 4, 12}}, k in "
+                  f"{{1, 20, 300}}; one scan launch a shard); one search at B=12 k=20 "
+                  f"{times['sharded']:.4f} ms host, unsharded {times['unsharded']:.4f} ms")
+            del sh
+        del whole
+        torch.cuda.empty_cache()
 
 
 # the one PyTorch call (or composed call) timed beside each kernel
@@ -799,18 +1036,27 @@ def build_serving(dev):
     return stack, ivf, qb
 
 
-def serve_path(stack, prompts, label: str, kernels) -> tuple:
+def serve_path(stack, prompts, label: str, kernels, extra=None) -> tuple:
     """The sequential baseline (RaLMSeq, or KNNLMSeq for KNN-LM), then a
     4-slot psa fleet, over one stack: the tokens must be identical (KNN-LM:
     token-match), every fleet group must make one merged KB call per round
     plus its seed call, and each kernel in ``kernels`` must have been
-    launched. The launch counts are set to 0 just before and read just
-    after. Returns (counts, the baseline's tokens)."""
+    launched. ``extra`` (an audio model's frames) goes to the engines, which
+    hand it to every prefill. The launch counts are set to 0 just before and
+    read just after. Returns (counts, the baseline's tokens, the KB calls of
+    both servers)."""
     from repro_torch.launch.serve import make_server
+    from repro_torch.serving.batched import BatchedServeEngine
+    from repro_torch.serving.engine import ServeEngine
     base = "KNNLMSeq" if stack.workload.name == "knnlm" else "RaLMSeq"
+    eng = beng = None
+    if extra is not None:
+        eng = ServeEngine(stack.model, stack.params, cache_window=512, extra=extra)
+        beng = BatchedServeEngine(stack.model, stack.params, 4, cache_window=512,
+                                  extra=extra)
     reset_counts()
     torch.cuda.synchronize()
-    seq = make_server(stack, scheduler="seq")
+    seq = make_server(stack, scheduler="seq", engine=eng)
     t = time.perf_counter()
     seq_res, seq_prefills = [], 0
     for p in prompts:
@@ -823,7 +1069,7 @@ def serve_path(stack, prompts, label: str, kernels) -> tuple:
           f"{sum(r.retrieval_time for r in seq_res):.3f} s  {n_tok / seq_wall:.1f} tok/s  "
           f"KB calls {sum(r.kb_calls for r in seq_res)}  prefills {seq_prefills}")
     fleet_res, fleet_wall, rounds, kb_calls, fleet_prefills = [], 0.0, 0, 0, 0
-    with make_server(stack, scheduler="fixed", n_slots=4) as fleet:
+    with make_server(stack, scheduler="fixed", n_slots=4, engine=beng) as fleet:
         for i in range(0, len(prompts), 4):
             fr = fleet.serve(prompts[i:i + 4])
             fleet_prefills += fleet.engine.stats.prefills   # per group
@@ -851,7 +1097,7 @@ def serve_path(stack, prompts, label: str, kernels) -> tuple:
     check(all(len(r.tokens) == n_new for r in seq_res), f"{label}: {base} stopped short")
     check(all(len(r.tokens) == n_new for r in fleet_res), f"{label}: the fleet stopped short")
     check(all(counts[n] > 0 for n in kernels), f"{label}: a kernel was not launched: {counts}")
-    return counts, [r.tokens for r in seq_res]
+    return counts, [r.tokens for r in seq_res], sum(r.kb_calls for r in seq_res) + kb_calls
 
 
 def serve_faults(stack, prompts, want, label: str) -> dict:
@@ -989,6 +1235,53 @@ def build_knnlm(dev):
     return stack, ivf
 
 
+def serve_sharded(stack, ivf, prompts, want: dict, dev) -> dict:
+    """The sharded backends at full width, as ``--mesh-shards 4`` builds
+    them: the serving KB cut into 4 shards on the card, a fresh EDR
+    retriever over ``sharded`` (8 prompts) and over ``int8-sharded``, and
+    the ADR index over each (4 prompts each). Each path's RaLMSeq and fleet
+    tokens must equal the unsharded backend's path's (``want``), the
+    backend must count one call per search (rounds + seeds in the fleet),
+    and the EDR paths must launch their scan once a shard a call."""
+    from repro_torch.retrieval.retrievers import ExactDenseRetriever, RetrieverStats
+    kb = stack.retriever.kb
+    paths = {}
+    for name, base, scan, gathered in (
+            ("sharded", "kernel", "dense_topk", "fused_gathered_topk"),
+            ("int8-sharded", "int8-kernel", "quant_dense_topk", "quant_fused_gathered_topk")):
+        t0 = time.perf_counter()
+        edr = ExactDenseRetriever(kb, backend=name, device=dev, mesh_shards=4)
+        be = edr.backend
+        print(f"{name}: {be.n_shards} shards of {[r.shape[0] for r in be._rows]} rows on "
+              f"{', '.join(sorted(set(map(str, be.devices))))}, {be.kb_bytes / 1e9:.3f} GB; "
+              f"built in {time.perf_counter() - t0:.1f} s")
+        n = len(prompts) if name == "sharded" else 4
+        for kind, retr, label_kernel in (("EDR", edr, scan), ("ADR", None, gathered)):
+            if retr is None:                       # the same index, the sharded backend
+                retr = copy.copy(ivf)
+                retr.backend, retr.stats = be, RetrieverStats("linear_intercept")
+                n = 4
+            st = dataclasses.replace(stack, retriever=retr, retriever_kind=kind.lower(),
+                                     backend=name, engine=None)
+            label = f"{kind} {name}"
+            c0 = be.calls
+            counts, tokens, kb_calls = serve_path(st, prompts[:n], label, (label_kernel,))
+            check(be.calls - c0 == kb_calls,
+                  f"{label}: the backend counted {be.calls - c0} calls, the servers {kb_calls}")
+            if kind == "EDR":
+                check(counts[scan] == be.n_shards * kb_calls,
+                      f"{label}: {counts[scan]} scan launches for {kb_calls} calls")
+            same = tokens == want[f"{kind} {base}"][:n]
+            print(f"{label}: {kb_calls} calls, {counts[label_kernel]} launches of "
+                  f"{label_kernel}; tokens identical to the {kind} {base} path: {same}")
+            check(same, f"{label}: tokens differ from the {kind} {base} path's")
+            paths[label] = counts
+        del edr, be, retr, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
 def check_datastore_topk(dev, kb, asked, report: dict) -> None:
     """B1 at the KNN-LM datastore's shape (N = 1M, d = 1024, k = 8) on the
     queries the KNN-LM paths asked: at B = 1 (KNNLMSeq) and at the largest
@@ -1026,7 +1319,8 @@ def check_datastore_topk(dev, kb, asked, report: dict) -> None:
 # head_dim, vocab) -- each over the RaLM paths' 500k x 768 KB
 FAMILY_PATHS = (("qwen2-moe-a2.7b", (24, 2048, 16, 16, 128, 151936)),
                 ("xlstm-350m", (24, 1024, 4, 4, 256, 50304)),
-                ("paligemma-3b", (18, 2048, 8, 1, 256, 257216)))
+                ("paligemma-3b", (18, 2048, 8, 1, 256, 257216)),
+                ("whisper-base", (6, 512, 8, 8, 64, 51865)))
 FAMILY_PROMPTS = 4
 
 
@@ -1038,10 +1332,12 @@ def serve_family(arch: str, want: tuple, base, prompts, dev) -> dict:
     shares its first rows with ``base``'s (one seeded stream), so the KB is
     what it encodes for those passages, whose token ids fit every vocab:
     RaLMSeq against the 4-slot psa fleet through ``serve_path``, B1 always
-    launched and B2 and B3 wherever the model has attention layers. Prints
-    the parameter count, the peak device memory, and one B=1 re-prefill at
-    S = 144 (a passage, a prompt and 48 generated tokens) timed with CUDA
-    events."""
+    launched and B2 and B3 wherever the model has attention layers. An
+    audio model (whisper-base) is served as the reference serves one: its
+    engines hand the encoder frames, (1, 1500, d) from numpy seed 0, to
+    every prefill. Prints the parameter count, the peak device memory, and
+    one B=1 re-prefill at S = 144 (a passage, a prompt and 48 generated
+    tokens) timed with CUDA events, with the encoder's share apart."""
     from repro_torch.launch.serve import build_stack
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1066,18 +1362,31 @@ def serve_family(arch: str, want: tuple, base, prompts, dev) -> dict:
           f"the card in {time.perf_counter() - t0:.1f} s")
     attn = "attn" in kinds
     kernels = ("dense_topk",) + (("decode_attention", "prefill_attention") if attn else ())
-    counts, _ = serve_path(fam, prompts, arch, kernels)
+    extra = None
+    if cfg.family == "audio":
+        check(cfg.encoder_layers == 6 and cfg.encoder_frames == 1500,
+              f"{arch}: the encoder is not as published")
+        frames = np.random.default_rng(0).standard_normal(
+            (1, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+        extra = {"frames": torch.as_tensor(frames, device=dev)}
+    counts, _, _ = serve_path(fam, prompts, arch, kernels, extra=extra)
     if not attn:
         check(counts["decode_attention"] == counts["prefill_attention"] == 0,
               f"{arch}: an attention kernel ran in a model without attention: {counts}")
     ctx = list(base.docs[0]) + [t for p in prompts for t in p]
     toks = torch.as_tensor([ctx[:144]], device=dev)
     with torch.no_grad():
-        ms = cuda_ms(lambda: fam.model.prefill(fam.params, toks, window_cache=512),
+        ms = cuda_ms(lambda: fam.model.prefill(fam.params, toks, extra=extra,
+                                               window_cache=512),
                      windows=3, inner=1, warmup=1)
+        enc = ""
+        if extra is not None:
+            enc_ms = cuda_ms(lambda: fam.model.encode(fam.params, extra["frames"]),
+                             windows=3, inner=1, warmup=1)
+            enc = f", of which the encoder over {cfg.encoder_frames} frames {enc_ms:.1f} ms"
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{arch}: one B=1 re-prefill at S={toks.shape[1]} takes {ms:.1f} ms (CUDA "
-          f"events); peak device memory {peak:.2f} GiB")
+          f"events){enc}; peak device memory {peak:.2f} GiB")
     return counts
 
 
@@ -1171,6 +1480,9 @@ def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--src", help="run phases 1-3 only, with the src/ directory of "
                                       "this or another tree (e.g. an unpacked parent commit)")
+    parser.add_argument("--across-cards", action="store_true",
+                        help="only build and check the sharded backends with their shards "
+                             "over every visible card (needs more than one)")
     args = parser.parse_args(argv)
     global T0
     T0 = time.perf_counter()
@@ -1200,6 +1512,12 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     print(f"kernels of {Path(repro_torch.__file__).resolve().parents[1]}")
+    if args.across_cards:
+        check(torch.cuda.device_count() > 1, "--across-cards needs more than one card")
+        check_sharded_across_cards()
+        print(f"chip_smoke --across-cards: {time.perf_counter() - T0:.1f} s in all")
+        print(smi)
+        return 0
 
     # phase 3: every kernel against its plain version
     report: dict = {}
@@ -1209,6 +1527,9 @@ def main(argv) -> int:
     check_prefill_attention(dev, report)
     if takes_any_head_dim():
         check_head_dims(dev, report)
+    if takes_wide_heads():
+        check_wide_heads(dev, report)
+    check_encoder_prefill(dev, report)
     stack, ivf, qb = build_serving(dev)
     prompts = [(q * 12)[:48] for q in make_queries(stack.docs, 64)]
     queries = stack.encoder.encode_batch(prompts)       # what RaLMSeq asks first
@@ -1218,6 +1539,8 @@ def main(argv) -> int:
     check_quant_topk(dev, qb._codes, qb._scales, queries, report)
     if takes_any_d_and_k():
         check_any_d(dev)
+    if importlib.util.find_spec("repro_torch.retrieval.sharded") is not None:
+        check_sharded(dev, stack.retriever.kb.embeddings, fp32, qb, ivf, queries, report)
     check_counts = read_counts()
     if args.src:
         print(json.dumps({"phase3": report}))
@@ -1229,36 +1552,41 @@ def main(argv) -> int:
     prompts = prompts[:8]
     torch.cuda.reset_peak_memory_stats()
     paths = {}
-    paths["EDR kernel"], seq_tokens = serve_path(
+    want = {}                                 # each unsharded path's RaLMSeq tokens
+    paths["EDR kernel"], want["EDR kernel"], _ = serve_path(
         stack, prompts, "EDR kernel", ("dense_topk", "decode_attention", "prefill_attention"))
+    seq_tokens = want["EDR kernel"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"EDR kernel: peak device memory {peak:.2f} GiB")
     adr = dataclasses.replace(stack, retriever=ivf, retriever_kind="adr", engine=None)
-    paths["ADR kernel"], _ = serve_path(adr, prompts, "ADR kernel", ("fused_gathered_topk",))
+    paths["ADR kernel"], want["ADR kernel"], _ = serve_path(adr, prompts, "ADR kernel",
+                                                            ("fused_gathered_topk",))
     rec = RecordingBackend(qb)
     qedr = dataclasses.replace(stack, retriever=ExactDenseRetriever(stack.retriever.kb,
                                                                     backend=rec),
                                backend="int8-kernel", engine=None)
-    paths["EDR int8-kernel"], _ = serve_path(qedr, prompts[:4], "EDR int8-kernel",
-                                             ("quant_dense_topk",))
+    paths["EDR int8-kernel"], want["EDR int8-kernel"], _ = serve_path(
+        qedr, prompts[:4], "EDR int8-kernel", ("quant_dense_topk",))
     qivf = copy.copy(ivf)                             # the same index, int8 backend
     qivf.backend, qivf.stats = rec, RetrieverStats("linear_intercept")
     qadr = dataclasses.replace(adr, retriever=qivf, backend="int8-kernel", engine=None)
-    paths["ADR int8-kernel"], _ = serve_path(qadr, prompts[:4], "ADR int8-kernel",
-                                             ("quant_fused_gathered_topk",))
+    paths["ADR int8-kernel"], want["ADR int8-kernel"], _ = serve_path(
+        qadr, prompts[:4], "ADR int8-kernel", ("quant_fused_gathered_topk",))
     paths["EDR kernel, faults"] = serve_faults(stack, prompts[:4], seq_tokens[:4],
                                                "EDR kernel, faults")
     recall = recall_at(20, rec.asked, fp32, qb)
     print("recall@20 of int8-kernel against kernel over the served query rows: " +
           ", ".join(f"{n} {r:.4f} ({m} rows)" for n, (r, m) in recall.items()))
     del rec, qedr, qivf, qadr, qb
+    # the sharded backends: --mesh-shards 4 over the same KB, freed after
+    paths.update(serve_sharded(stack, ivf, prompts, want, dev))
     t0 = time.perf_counter()
     sr = build_stack("sr", n_docs=SR_N_DOCS, full_width=True, device=dev, rcfg=stack.rcfg)
     print(f"SR stack: BM25 over {sr.retriever.kb.size} passages (terms "
           f"{sr.retriever.kb.terms.shape}); built in {time.perf_counter() - t0:.1f} s")
     sr_prompts = [(q * 12)[:48] for q in make_queries(sr.docs, 4)]
-    paths["SR numpy"], _ = serve_path(sr, sr_prompts, "SR numpy",
-                                      ("decode_attention", "prefill_attention"))
+    paths["SR numpy"], _, _ = serve_path(sr, sr_prompts, "SR numpy",
+                                         ("decode_attention", "prefill_attention"))
     del sr
     torch.cuda.empty_cache()
 
@@ -1267,19 +1595,19 @@ def main(argv) -> int:
     knn_prompts = [knn.stream[i * 97:i * 97 + 48].tolist() for i in range(8)]
     knn_rec = RecordingBackend(knn.retriever.backend)   # the merged batches, for B1 below
     knn.retriever.backend = knn_rec
-    paths["KNN-LM EDR kernel"], knn_tokens = serve_path(
+    paths["KNN-LM EDR kernel"], knn_tokens, _ = serve_path(
         knn, knn_prompts, "KNN-LM EDR kernel",
         ("dense_topk", "decode_attention", "prefill_attention"))
     knn.retriever.backend = knn_rec.inner
     knn_adr = dataclasses.replace(knn, retriever=knn_ivf, retriever_kind="adr", engine=None)
-    paths["KNN-LM ADR kernel"], adr_tokens = serve_path(
+    paths["KNN-LM ADR kernel"], _, _ = serve_path(
         knn_adr, knn_prompts, "KNN-LM ADR kernel", ("fused_gathered_topk",))
     paths["KNN-LM EDR continuous"] = serve_continuous(knn, knn_prompts, knn_tokens,
                                                       "KNN-LM EDR kernel")
     check_datastore_topk(dev, knn.retriever.backend._kb, knn_rec.asked, report)
     del knn, knn_rec, knn_adr, knn_ivf
 
-    # the MoE, SSM and VLM families at full width over the same KB; the
+    # the MoE, SSM, VLM and audio families at full width over the same KB; the
     # ralm-gpt2-medium weights and engines and the KNN-LM stack are freed
     # first (the KB, the docs and the encoder stay), and the gpt2 weights
     # are drawn again from the same seed for the engine checks after
@@ -1329,6 +1657,12 @@ def main(argv) -> int:
             entry["at_datastore"] = report[f"{name}@datastore"]
         if f"{name}@hd256" in report:        # B2 and B3 at paligemma-3b's shapes
             entry["at_hd256"] = report[f"{name}@hd256"]
+        if f"{name}@hd512" in report:        # B2 and B3 through the wide-head kernels
+            entry["at_hd512"] = report[f"{name}@hd512"]
+        if f"{name}@encoder" in report:      # B3 at whisper-base's encoder
+            entry["at_encoder"] = report[f"{name}@encoder"]
+        if f"{name}@4shards" in report:      # B1 as the sharded backend's per-shard scan
+            entry["at_4shards"] = report[f"{name}@4shards"]
         if name in ("gathered_topk", "quant_gathered_topk"):
             # no serving route in either package: its launches are phase 3's
             entry["launches"] = check_counts[name]

@@ -45,11 +45,15 @@
 // instance, and the softmax scale comes from the call (the real hd's), so a
 // padded lane adds 0 to every score and gives a 0 output column that the
 // wrapper drops. The per-HD shapes (Dims) keep every array static: at hd
-// 256 a pass covers 4 query heads, so sQ and sAcc stay at 36 KB.
+// 256 a pass covers 4 query heads, so sQ and sAcc stay at 36 KB. Above hd
+// 256 (a multiple of 4, the wrapper pads the rest) a call runs the separate
+// wide-head kernel (decode_wide_kernel, over wide_attention.cuh): one CTA
+// per (query head, slot), no scratch, the same masks.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "cp_async.cuh"
+#include "wide_attention.cuh"
 
 namespace {
 
@@ -303,6 +307,22 @@ decode_attn_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   if (tid == 0) tickets[slot_row] = 0;
 }
 
+// hd > 256: one CTA per (query head, slot) over the slot's valid entries
+// (the whole window, with equal scores, at cache_len <= 0)
+__global__ void __launch_bounds__(wide::kThreads)
+decode_wide_kernel(const float* __restrict__ q, const float* __restrict__ kc,
+                   const float* __restrict__ vc, const int* __restrict__ cache_len,
+                   float* __restrict__ out, int H, int W, int KV, int hd, float scale) {
+  const int h = blockIdx.x, b = blockIdx.y, kvh = h / (H / KV);
+  const int len = cache_len[b];
+  const bool uniform = len <= 0;
+  const int L = uniform ? W : min(len, W);
+  const size_t row = static_cast<size_t>(b) * H + h;
+  const size_t base = (static_cast<size_t>(b) * W * KV + kvh) * hd;
+  wide::attend_row(q + row * hd, kc + base, vc + base, static_cast<size_t>(KV) * hd, 0, L,
+                   [](int) { return true; }, uniform, scale, hd, out + row * hd);
+}
+
 template <int HD>
 int launch(const float* q, const float* k, const float* v, const int* cache_len, float* out,
            float* part, int* tickets, int B, int H, int W, int KV, float scale,
@@ -319,8 +339,10 @@ int launch(const float* q, const float* k, const float* v, const int* cache_len,
 // all f32 and contiguous. part: the chunks' partials, B * H * ceil(W / 64) *
 // (hd + 2) floats (unused when W <= 64); tickets: B * KV int32, zero between
 // launches (each launch leaves them zero). scale multiplies every score (the
-// caller's 1 / sqrt of the unpadded hd). The caller guarantees H % KV == 0;
-// an hd with no instance returns cudaErrorInvalidValue without a launch.
+// caller's 1 / sqrt of the unpadded hd). The caller guarantees H % KV == 0.
+// An hd above 256 that is a multiple of 4 runs the wide-head kernel (part
+// and tickets unused); any other hd with no instance returns
+// cudaErrorInvalidValue without a launch.
 extern "C" int decode_attention_launch(const float* q, const float* k, const float* v,
                                        const int* cache_len, float* out, float* part,
                                        int* tickets, int B, int H, int W, int KV, int hd,
@@ -337,6 +359,9 @@ extern "C" int decode_attention_launch(const float* q, const float* k, const flo
     DECODE_CASE(256)
 #undef DECODE_CASE
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if (hd <= 256 || hd % 4) return static_cast<int>(cudaErrorInvalidValue);
+      decode_wide_kernel<<<dim3(H, B), wide::kThreads, 0, stream>>>(q, k, v, cache_len, out, H,
+                                                                   W, KV, hd, scale);
+      return static_cast<int>(cudaGetLastError());
   }
 }

@@ -36,11 +36,16 @@
 // wrapper zero-pads any other hd <= 256 to the next instance and passes the
 // real hd's softmax scale, so padded lanes add 0 to every score and give 0
 // output columns that the wrapper drops. hd 256 takes 151 KB of dynamic
-// shared memory (one CTA an SM), under the card's 227 KB.
+// shared memory (one CTA an SM), under the card's 227 KB. Above hd 256 (a
+// multiple of 4, the wrapper pads the rest) a call runs the separate
+// wide-head kernel (prefill_wide_kernel, over wide_attention.cuh): one CTA
+// per (query row, head) walking only the keys its masks can allow.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "cp_async.cuh"
+#include "smem_attr.cuh"
+#include "wide_attention.cuh"
 
 namespace {
 
@@ -239,15 +244,36 @@ prefill_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// hd > 256: one CTA per (query row, head); the walk covers only the keys
+// the masks can allow (up to the diagonal or the end of the prefix, and
+// from the window's start)
+__global__ void __launch_bounds__(wide::kThreads)
+prefill_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out, int S, int H,
+                    int KV, int hd, int causal, int window, int prefix_len, float scale) {
+  const int qi = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const bool in_prefix = qi < prefix_len;
+  int lo = 0, hi = S;
+  if (causal) hi = min(S, in_prefix ? max(qi + 1, prefix_len) : qi + 1);
+  if (window > 0) lo = max(0, qi - window + 1);
+  auto allowed = [=](int t) {
+    return (!causal || t <= qi || (in_prefix && t < prefix_len)) &&
+           (window <= 0 || t > qi - window);
+  };
+  const size_t row = (static_cast<size_t>(b) * S + qi) * H + h;
+  const size_t base = (static_cast<size_t>(b) * S * KV + kvh) * hd;
+  wide::attend_row(q + row * hd, k + base, v + base, static_cast<size_t>(KV) * hd, lo, hi,
+                   allowed, false, scale, hd, out + row * hd);
+}
+
 template <int HD>
 void launch(const float* q, const float* k, const float* v, float* out, int B, int S,
             int H, int KV, int causal, int window, int prefix_len, float scale,
             cudaStream_t stream) {
-  // once per instantiation, not per launch: a launch inside CUDA-graph
-  // capture makes no other runtime call
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<HD>::kSmem);
-  (void)attr;
+  // once per instantiation and device
+  static bool smem_allowed[kMaxDevices] = {};
+  allow_smem(smem_allowed, prefill_attn_kernel<HD>, Tile<HD>::kSmem);
   dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   prefill_attn_kernel<HD><<<grid, kThreads, Tile<HD>::kSmem, stream>>>(
       q, k, v, out, S, H, KV, causal, window, prefix_len, scale);
@@ -257,7 +283,8 @@ void launch(const float* q, const float* k, const float* v, float* out, int B, i
 
 // q (B, S, H, hd), k/v (B, S, KV, hd) -> out (B, S, H, hd), all f32 and
 // contiguous; scale multiplies every score (the caller's 1 / sqrt of the
-// unpadded hd). The caller guarantees H % KV == 0; an hd with no instance
+// unpadded hd). The caller guarantees H % KV == 0. An hd above 256 that is
+// a multiple of 4 runs the wide-head kernel; any other hd with no instance
 // returns cudaErrorInvalidValue without a launch.
 extern "C" int prefill_attention_launch(const float* q, const float* k, const float* v,
                                         float* out, int B, int S, int H, int KV, int hd,
@@ -276,7 +303,9 @@ extern "C" int prefill_attention_launch(const float* q, const float* k, const fl
     PREFILL_CASE(256)
 #undef PREFILL_CASE
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if (hd <= 256 || hd % 4) return static_cast<int>(cudaErrorInvalidValue);
+      prefill_wide_kernel<<<dim3(S, B * H), wide::kThreads, 0, stream>>>(
+          q, k, v, out, S, H, KV, hd, causal, window, prefix_len, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

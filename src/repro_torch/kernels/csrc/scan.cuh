@@ -42,6 +42,7 @@
 #pragma once
 
 #include "cp_async.cuh"
+#include "smem_attr.cuh"
 #include "topk_common.cuh"
 
 namespace {
@@ -466,13 +467,10 @@ void launch_scan(const float* q, const T* rows, const float* scales, const int* 
                  uint64_t* partial, int B, int N, int ncols, int d, int k, int lists,
                  cudaStream_t stream) {
   using C = Cfg<QB, QN, RM, THREADS, T, kCtas>;
-  // once per instantiation, at its largest list size (not per launch: a
-  // launch inside CUDA-graph capture makes no other runtime call)
-  auto kernel = scan_kernel<QB, QN, RM, THREADS, T, S, kKeys, kCtas>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(C::smem(kKeys ? 0 : C::kMaxCap)));
-  (void)attr;
+  // once per instantiation and device, at its largest list size
+  static bool smem_allowed[kMaxDevices] = {};
+  allow_smem(smem_allowed, scan_kernel<QB, QN, RM, THREADS, T, S, kKeys, kCtas>,
+             static_cast<int>(C::smem(kKeys ? 0 : C::kMaxCap)));
   const int cap = kKeys ? 0 : list_cap(k);
   const int qblocks = (B + QB - 1) / QB;
   const dim3 grid = S == Src::kDense ? dim3(lists, qblocks) : dim3(qblocks, lists);

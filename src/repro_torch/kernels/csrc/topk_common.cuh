@@ -14,6 +14,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_attr.cuh"
+
 namespace {
 
 constexpr int kMergeThreads = 1024;
@@ -226,12 +228,10 @@ topk_select_kernel(const uint64_t* __restrict__ keys, uint64_t* __restrict__ sor
 // kSelectSmemKeys (else it is not touched).
 void launch_select(const uint64_t* keys, uint64_t* sortbuf, float* scores, int* ids, int B,
                    int n, int k, const int* cand, int C, cudaStream_t stream) {
-  // once per process (not per launch: a launch inside CUDA-graph capture
-  // makes no other runtime call)
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      topk_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSelectSmemKeys * sizeof(uint64_t)));
-  (void)attr;
+  // once per device
+  static bool smem_allowed[kMaxDevices] = {};
+  allow_smem(smem_allowed, topk_select_kernel,
+             static_cast<int>(kSelectSmemKeys * sizeof(uint64_t)));
   const int kk = k < n ? k : n;
   int P = 1;
   while (P < kk) P <<= 1;

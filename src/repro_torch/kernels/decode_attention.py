@@ -9,10 +9,11 @@ slot with cache_len <= 0 has every entry masked, so its softmax weights are
 equal and its output is the mean of v over the whole window, as the
 reference's is. Every caller on the serving path has cache_len >= 1.
 
-:func:`decode_attention` runs the CUDA kernel on CUDA tensors (any hd up
-to :data:`MAX_HD`: the kernel is built for the widths in :data:`HEAD_DIMS`,
-and any other hd is zero-padded to the next of them, with the real hd's
-softmax scale) and :func:`decode_attention_plain` on CPU tensors.
+:func:`decode_attention` runs the CUDA kernel on CUDA tensors, at any hd
+(the kernel is built for the widths in :data:`HEAD_DIMS`, and any other hd
+up to :data:`MAX_HD` is zero-padded to the next of them, with the real hd's
+softmax scale; above it a separate wide-head kernel takes hd zero-padded to
+a multiple of 4), and :func:`decode_attention_plain` on CPU tensors.
 ``launches`` counts kernel launches. The kernel splits each slot's cache into chunks of
 :data:`CHUNK` entries. The wrapper keeps, per device, the scratch for the
 chunks' partials and a zeroed ticket buffer, which each launch leaves
@@ -31,7 +32,7 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)   # the kernel's instances (csrc/decode_attention.cu)
-MAX_HD = HEAD_DIMS[-1]
+MAX_HD = HEAD_DIMS[-1]  # above it: the wide-head kernel (csrc/wide_attention.cuh)
 CHUNK = 64             # cache entries per CTA (kChunk in csrc/decode_attention.cu)
 MIN_SCRATCH = 1 << 18  # ticket ints and partial floats that a device's first scratch holds
 launches = 0
@@ -63,12 +64,13 @@ def _launch_fn():
 
 
 def instance_hd(hd: int) -> int:
-    """The kernel instance a head dim runs on: the smallest of
-    :data:`HEAD_DIMS` that holds it. Raises above :data:`MAX_HD`."""
+    """The head dim a kernel launch runs at: the smallest of
+    :data:`HEAD_DIMS` that holds ``hd``, or above :data:`MAX_HD` ``hd``
+    rounded up to a multiple of 4 (the wide-head kernel's 16-byte rows)."""
     for n in HEAD_DIMS:
         if hd <= n:
             return n
-    raise ValueError(f"the attention kernels take hd <= {MAX_HD}, got hd={hd}")
+    return -(-hd // 4) * 4
 
 
 def pad_hd(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -113,7 +115,8 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     _build.check_kernel_inputs("decode_attention", torch.int32, cache_len)
     q, k_cache, v_cache = (pad_hd(t, n) for t in (q, k_cache, v_cache))
     out = torch.empty_like(q)
-    scratch = _scratch_for(q.device, B * KV, B * H * -(-W // CHUNK) * (n + 2))
+    wide = n > MAX_HD                     # the wide-head kernel keeps no partials
+    scratch = _scratch_for(q.device, B * KV, 0 if wide else B * H * -(-W // CHUNK) * (n + 2))
     rc = _launch_fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                       cache_len.data_ptr(), out.data_ptr(), scratch[3], scratch[2],
                       B, H, W, KV, n, 1.0 / math.sqrt(hd), _build.stream_ptr(q.device))

@@ -6,10 +6,11 @@ and on the card of the reference model's ``plain_attention`` /
 causal (optionally with a bidirectional prefix of ``prefix_len`` positions),
 optional sliding ``window``, GQA.
 
-:func:`prefill_attention` runs the CUDA kernel on CUDA tensors (any hd up
-to 256: built for the same widths as B2, ``decode_attention.HEAD_DIMS``, any
-other hd zero-padded to the next of them with the real hd's softmax scale)
-and :func:`prefill_attention_plain` on CPU tensors.
+:func:`prefill_attention` runs the CUDA kernel on CUDA tensors, at any hd
+(built for the same widths as B2, ``decode_attention.HEAD_DIMS``, any other
+hd up to 256 zero-padded to the next of them with the real hd's softmax
+scale; above 256 a separate wide-head kernel takes hd zero-padded to a
+multiple of 4), and :func:`prefill_attention_plain` on CPU tensors.
 ``launches`` counts kernel launches.
 """
 from __future__ import annotations

@@ -33,10 +33,23 @@ spec`` only), with ``--retry-max`` / ``--retry-backoff`` /
         --workload knnlm --scheduler continuous --concurrency 4 \
         --requests 8 --arrival-rate 2
 
+``--retriever-backend sharded`` (or ``int8-sharded``) cuts the KB into
+``--mesh-shards N`` shards, each scanned by its own kernel launch, and merges
+them in one call per round (``repro_torch.retrieval.sharded``: a single
+controller over the visible cards, all shards on the one card of an H100
+host; 0 means one shard a card):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --retriever-backend sharded --mesh-shards 4 --concurrency 2
+
+An audio model (whisper-base) takes its encoder frames through the engine:
+``make_server(stack, engine=ServeEngine(..., extra={"frames": f}))``, as in
+the reference; the CLI has no flag for it.
+
 Everything runs on ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
-plain PyTorch versions). The capability table below lists what the port runs
-today; everything else is rejected by :func:`validate_stack`, naming what is
-supported.
+plain PyTorch versions). The capability table below lists what the port
+runs, the reference's own; everything else is rejected by
+:func:`validate_stack`, naming what is supported.
 """
 from __future__ import annotations
 
@@ -73,8 +86,7 @@ SCHEDULERS = ("seq", "single", "fixed", "continuous")
 # backends. Every listed cell runs under every scheduler in SCHEDULERS. SR's
 # BM25 term scan has a single (numpy) execution strategy. KNN-LM has no SR
 # cell: its datastore must carry per-entry next-token values, which a BM25
-# SparseKB does not. The reference's sharded backends are not in BACKENDS
-# yet (ROADMAP.md).
+# SparseKB does not.
 CAPABILITIES = {
     ("ralm", "edr"): BACKENDS,
     ("ralm", "adr"): BACKENDS,
@@ -128,16 +140,19 @@ class ServeStack:
 
 def build_stack(retriever: str, *, n_docs: int = 20000,
                 arch: str = "ralm-gpt2-medium", backend: str = "numpy",
-                seed: int = 0, enc_dim: int = 64, d_model: int = 256,
+                mesh_shards: int = 0, seed: int = 0, enc_dim: int = 64, d_model: int = 256,
                 workload: str = "ralm", rcfg: RaLMConfig = None,
                 shared_cache=None, knn_entries: Optional[int] = 20000,
                 device=None, full_width: bool = False) -> ServeStack:
     """Model + corpus + retriever + workload, validated against the
     capability table. The defaults build the reference's reduced stack
     (2 layers, d_model 256, vocab 512); ``full_width=True`` builds ``arch``
-    exactly as published. ``arch`` may name any config of the registry but
-    the audio one: dense, MoE, SSM, hybrid and VLM models are served. Parameters come from a ``torch.Generator`` seeded
-    with ``seed`` on ``device`` (default CUDA).
+    exactly as published. ``arch`` may name any config of the registry:
+    dense, MoE, SSM, hybrid, VLM and audio models are served (an audio
+    model's frames reach its prefills through the engine's ``extra``).
+    ``mesh_shards`` is the sharded backends' shard count (0: one shard a
+    visible card). Parameters come from a ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (default CUDA).
 
     With ``workload='knnlm'`` the KB is a (context -> next token) datastore
     over the corpus token stream (``knn_entries`` caps its size, None takes
@@ -165,9 +180,9 @@ def build_stack(retriever: str, *, n_docs: int = 20000,
     if retriever == "sr":
         retr = BM25Retriever(kb)
     elif retriever == "edr":
-        retr = ExactDenseRetriever(kb, backend=backend, device=dev)
+        retr = ExactDenseRetriever(kb, backend=backend, device=dev, mesh_shards=mesh_shards)
     else:
-        retr = IVFRetriever(kb, backend=backend, device=dev)
+        retr = IVFRetriever(kb, backend=backend, device=dev, mesh_shards=mesh_shards)
     return ServeStack(cfg=cfg, model=model, params=params, docs=docs,
                       encoder=enc, retriever=retr, rcfg=rcfg,
                       workload=default_workload(rcfg),
@@ -292,8 +307,10 @@ def main() -> None:
                          "speculation stride (implied by a variant containing 'a')")
     ap.add_argument("--retriever-backend", default="numpy",
                     help="dense scoring backend: numpy, kernel (the CUDA "
-                         "scans, KB resident on the device), int8 (numpy over "
-                         "the int8 KB) or int8-kernel (the CUDA int8 scans)")
+                         "scans, KB resident on the device), sharded (the KB "
+                         "cut into --mesh-shards shards, a CUDA scan each), "
+                         "int8 (numpy over the int8 KB), int8-kernel (the "
+                         "CUDA int8 scans) or int8-sharded")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the model's random parameters and of the "
                          "Poisson arrivals")
@@ -330,10 +347,10 @@ def main() -> None:
     ap.add_argument("--queue-deadline", type=float, default=0.0,
                     help="continuous: queueing-delay deadline in modeled "
                          "seconds past which a waiting request is shed")
-    # the reference's flag for the sharded backends, not in the port yet:
-    # accepted so the two CLIs take the same command lines, refused when used
     ap.add_argument("--mesh-shards", type=int, default=0,
-                    help="shard count of the sharded backends (not ported yet)")
+                    help="shard count of the sharded backends (0 = one shard "
+                         "per visible card; any N, several shards a card "
+                         "where N exceeds the cards, on the CPU all on it)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     ap.add_argument("--full-width", action="store_true",
@@ -348,9 +365,8 @@ def main() -> None:
         device = resolve_device(args.device)
     except (ValueError, RuntimeError) as e:
         ap.error(str(e))
-    if args.mesh_shards:
-        ap.error("--mesh-shards needs the sharded backends, which are not "
-                 "ported yet")
+    if args.mesh_shards < 0:
+        ap.error("--mesh-shards must be >= 0")
     arrivals = None
     if args.scheduler == "continuous":
         try:
@@ -389,7 +405,8 @@ def main() -> None:
     full_knn = args.full_width and args.workload == "knnlm"
     stack = build_stack(args.retriever, n_docs=args.n_docs,
                         arch="knnlm-247m" if full_knn else "ralm-gpt2-medium",
-                        backend=args.retriever_backend, seed=args.seed,
+                        backend=args.retriever_backend,
+                        mesh_shards=args.mesh_shards, seed=args.seed,
                         enc_dim=args.enc_dim, workload=args.workload, rcfg=rcfg,
                         shared_cache=shared,
                         knn_entries=None if full_knn else 20000,
@@ -398,7 +415,10 @@ def main() -> None:
     kb = retr.kb
     kb_shape = (f"{kb.size} x {kb.embeddings.shape[1]}" if hasattr(kb, "embeddings")
                 else f"{kb.size} docs (BM25)")
-    backend = getattr(getattr(retr, "backend", None), "name", "numpy")
+    be = getattr(retr, "backend", None)
+    backend = getattr(be, "name", "numpy")
+    if backend.endswith("sharded"):
+        backend += f" ({be.n_shards} shards on {', '.join(sorted(set(map(str, be.devices))))})"
     print(f"device {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host'}), "
           f"model {stack.cfg.name}: {stack.cfg.num_layers} layers, "
           f"d_model {stack.cfg.d_model}, vocab {stack.cfg.vocab_size}; "

@@ -13,7 +13,9 @@ caller (this module imports nothing of JAX), and returns the dict
 
 Every leaf is taken as it is, nested dicts included: a MoE layer's router
 (d, E), its stacked experts (E, d, f) / (E, f, d) and its ``shared`` expert,
-and the Mamba, mLSTM and sLSTM mixers' parameters (``models.ssm``).
+the Mamba, mLSTM and sLSTM mixers' parameters (``models.ssm``), an audio
+decoder layer's ``norm_cross`` and ``cross`` attention, and an audio model's
+``encoder`` (a tuple of unstacked layers and its ``final_norm``).
 """
 from __future__ import annotations
 
@@ -48,4 +50,8 @@ def params_from_reference(cfg, tree: dict, device="cpu") -> dict:
            "layers": layers}
     if "unembed" in tree:
         out["unembed"] = _tensors(tree["unembed"], device)
+    if "encoder" in tree:                        # audio: its layers are not stacked
+        enc = tree["encoder"]
+        out["encoder"] = {"layers": [_tensors(bp, device) for bp in enc["layers"]],
+                          "final_norm": _tensors(enc["final_norm"], device)}
     return out

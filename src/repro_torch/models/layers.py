@@ -1,13 +1,15 @@
-"""Building blocks of the decoder, as plain functions over parameter dicts
-(the reference's ``repro.models.layers``, less its audio-only pieces: cross
-attention and sinusoidal positions).
+"""Building blocks of the models, as plain functions over parameter dicts
+(the reference's ``repro.models.layers``): norms, rope and sinusoidal
+positions, the SwiGLU MLP, self-attention, and the audio decoder's
+cross-attention over its encoder's memory.
 
 Weights keep the reference layout, ``(d_in, d_out)``, so ``x @ w`` here is the
 reference's ``einsum("...d,df->...f")``. Attention goes through the kernel
 wrappers: :func:`repro_torch.kernels.prefill_attention.prefill_attention` on
 the full sequence and :func:`repro_torch.kernels.decode_attention.decode_attention`
 on one decode step; each runs its CUDA kernel on the card and its plain
-version on the CPU.
+version on the CPU. Cross-attention is plain PyTorch on both, as the
+reference's is plain jnp outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -34,7 +36,11 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32)
             "w_down": normal(gen, (d_ff, d_model), 1.0 / math.sqrt(d_ff), dtype)}
 
 
-def init_attention(gen: torch.Generator, cfg, dtype=torch.float32) -> dict:
+def init_attention(gen: torch.Generator, cfg, dtype=torch.float32,
+                   cross: bool = False) -> dict:
+    """Self-attention's parameters, or (``cross``) a decoder's
+    cross-attention's, which has the same leaves: q from the decoder, k and
+    v from the encoder's memory."""
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dev = gen.device
     p = {"wq": normal(gen, (d, H * hd), 1.0 / math.sqrt(d), dtype),
@@ -90,6 +96,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return rotate(x, rope_tables(positions, x.shape[-1], theta))
 
 
+def sinusoid_at(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (models with rope_theta <=
+    0) at ``positions`` (...,) -> (..., d_model): sines, then cosines."""
+    dim = torch.arange(d_model // 2, dtype=torch.float32, device=positions.device)
+    inv = torch.exp(-math.log(10000.0) * dim / max(d_model // 2 - 1, 1))
+    ang = positions.float()[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, device=None) -> torch.Tensor:
+    """(seq_len, d_model) embeddings of positions 0 .. seq_len - 1."""
+    return sinusoid_at(torch.arange(seq_len, device=device), d_model)
+
+
 def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x W_gate) * x W_up) W_down."""
     g = x @ p["w_gate"]
@@ -135,6 +155,34 @@ def attend_full(p: dict, q, k, v, *, causal=True, window=0, prefix_len=0):
     out = prefill_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=causal, window=window, prefix_len=prefix_len)
     return out.reshape(B, S, -1) @ p["wo"]
+
+
+def apply_cross_attention(p: dict, cfg, x: torch.Tensor, mem_k: torch.Tensor,
+                          mem_v: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention over the encoder memory's projected K/V (B, T,
+    KV, hd): every query attends to every frame (no mask), GQA, then W_o."""
+    B, S = x.shape[0], x.shape[1]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.float().reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,btkh->bqkgt", q, mem_k.float()) / math.sqrt(hd)
+    out = torch.einsum("bqkgt,btkh->bqkgh", torch.softmax(s, dim=-1), mem_v.float())
+    return out.reshape(B, S, -1).to(x.dtype) @ p["wo"]
+
+
+def project_memory_kv(p: dict, cfg, mem: torch.Tensor):
+    """The encoder output (B, T, d) projected once into the decoder's
+    cross-attention K/V, each (B, T, KV, hd)."""
+    B, T = mem.shape[0], mem.shape[1]
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    k = mem @ p["wk"]
+    v = mem @ p["wv"]
+    if cfg.qkv_bias:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return k.reshape(B, T, KV, hd), v.reshape(B, T, KV, hd)
 
 
 def decode_positions(position, batch: int, device) -> torch.Tensor:

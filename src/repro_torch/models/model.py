@@ -1,22 +1,30 @@
-"""Model assembly for the decoder families the serving path runs (the
-reference's ``repro.models.model.Model``): dense, MoE, SSM (xLSTM), hybrid
-(Jamba: Mamba, attention and MoE) and VLM (PaliGemma: image patches as a
-bidirectional prefix). ``init``, ``init_decode_state``, ``prefill`` and
-``decode_step``; the audio family, ``forward`` and ``decode_step_stacked``
-are not ported yet (ROADMAP.md).
+"""Model assembly for every family the serving path runs (the reference's
+``repro.models.model.Model``): dense, MoE, SSM (xLSTM), hybrid (Jamba:
+Mamba, attention and MoE), VLM (PaliGemma: image patches as a
+bidirectional prefix) and audio (Whisper: an encoder over precomputed frame
+embeddings, and a decoder with cross-attention over its output).
+``init``, ``encode``, ``init_decode_state``, ``prefill`` and
+``decode_step``; ``forward`` (the full-sequence training pass) and
+``decode_step_stacked`` (the dry-run's) are not ported yet (ROADMAP.md).
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
 ``unembed`` (d, V) unless embeddings are tied, and ``layers``, one dict per
 layer: ``norm1``, ``mixer`` (attention {wq, wk, wv, wo[, bq, bk, bv][,
 q_norm, k_norm]}, or a Mamba / mLSTM / sLSTM mixer from ``models.ssm``),
 and ``norm2`` with ``moe`` (``models.moe``) or ``ffn`` {w_gate, w_up,
-w_down} where the layer has one. The reference stacks its layers for
-``lax.scan``; ``repro_torch.models.convert`` unstacks them.
+w_down} where the layer has one; an audio decoder layer also has
+``norm_cross`` and ``cross`` (attention leaves), and an audio model an
+``encoder`` {``layers`` (self-attention blocks), ``final_norm``}. The
+reference stacks its layers for ``lax.scan``; ``repro_torch.models.convert``
+unstacks them.
 
 The decode state is a list with one dict per layer: ``{"k", "v"}`` ring
 caches (B, W, KV, hd) for attention, ``{"ssm": {...}}`` for a recurrent
-mixer. Every method returns new tensors and never writes into the state it
-was given, so a state held by an engine snapshot stays valid.
+mixer, and for an audio decoder ``"cross_k"``/``"cross_v"`` (B, frames,
+KV, hd), the encoder memory's K/V that prefill projects once. Every method
+returns new tensors and never writes into the state it was given, so a
+state held by an engine snapshot stays valid; no decode step writes the
+cross K/V, so a step hands the same tensors on and snapshots share them.
 """
 from __future__ import annotations
 
@@ -30,9 +38,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
-# the families whose serving path this module ports; audio (cross-attention
-# over an encoder) is later work (ROADMAP.md)
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+# the families whose serving path this module ports: every family of the
+# registry
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 class _Recurrent(NamedTuple):
@@ -76,13 +84,15 @@ def layer_plan(cfg: ModelConfig) -> Tuple[int, int, int]:
     return LY, 1, 0
 
 
-def _init_block(gen, cfg: ModelConfig, sig, dtype) -> dict:
+def _init_block(gen, cfg: ModelConfig, sig, dtype, cross: bool = False) -> dict:
     kind, has_moe = sig
     d = cfg.d_model
     ones = torch.ones((d,), dtype=dtype, device=gen.device)
     p = {"norm1": ones,
          "mixer": (L.init_attention(gen, cfg, dtype) if kind == "attn"
                    else _RECURRENT[kind].init(gen, cfg, dtype))}
+    if cross:
+        p.update(norm_cross=ones.clone(), cross=L.init_attention(gen, cfg, dtype, cross=True))
     if has_moe:
         p.update(norm2=ones.clone(), moe=MOE.init_moe(gen, cfg, dtype))
     elif cfg.d_ff > 0:
@@ -95,9 +105,15 @@ def _init_layer_state(cfg: ModelConfig, sig, batch: int, window: int, device,
     kind = sig[0]
     if kind == "attn":
         shape = (batch, window, cfg.num_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, device=device, dtype=dtype),
-                "v": torch.zeros(shape, device=device, dtype=dtype)}
-    return {"ssm": _RECURRENT[kind].init_state(cfg, batch, device, dtype)}
+        st = {"k": torch.zeros(shape, device=device, dtype=dtype),
+              "v": torch.zeros(shape, device=device, dtype=dtype)}
+    else:
+        st = {"ssm": _RECURRENT[kind].init_state(cfg, batch, device, dtype)}
+    if cfg.family == "audio":
+        shape = (batch, cfg.encoder_frames, cfg.num_kv_heads, cfg.head_dim)
+        st.update(cross_k=torch.zeros(shape, device=device, dtype=dtype),
+                  cross_v=torch.zeros(shape, device=device, dtype=dtype))
+    return st
 
 
 def _final_state(mp: dict, cfg: ModelConfig, kind: str, h: torch.Tensor) -> dict:
@@ -129,9 +145,39 @@ class Model:
                   "final_norm": torch.ones((d,), dtype=dtype, device=generator.device)}
         if not cfg.tie_embeddings:
             params["unembed"] = L.normal(generator, (d, cfg.vocab_size), d ** -0.5, dtype)
-        params["layers"] = [_init_block(generator, cfg, sig, dtype)
+        cross = cfg.family == "audio"
+        params["layers"] = [_init_block(generator, cfg, sig, dtype, cross)
                             for sig in signatures(cfg)]
+        if cross:
+            params["encoder"] = {
+                "layers": [_init_block(generator, cfg, ("attn", False), dtype)
+                           for _ in range(cfg.encoder_layers)],
+                "final_norm": torch.ones((d,), dtype=dtype, device=generator.device)}
         return params
+
+    # ---- encoder (audio) --------------------------------------------------------------
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """frames (B, F, d): the precomputed frame embeddings of the stubbed
+        conv frontend, as in the reference -> the encoder's output (B, F,
+        d): sinusoidal positions, then bidirectional self-attention blocks
+        (B3 with ``causal=False``) and a final norm."""
+        cfg = self.cfg
+        enc = params["encoder"]
+        x = frames.to(device=enc["final_norm"].device, dtype=enc["final_norm"].dtype)
+        x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+        rope = L.rope_tables(torch.arange(x.shape[1], device=x.device)[None],
+                             cfg.head_dim, cfg.rope_theta)
+        for bp in enc["layers"]:
+            h = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
+            q, k, v = L.self_attention_qkv(bp["mixer"], cfg, h, rope)
+            x = x + L.attend_full(bp["mixer"], q, k, v, causal=False)
+            x = self._ffn(bp, x)
+        return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+    def _cross(self, bp, x, mem_k, mem_v):
+        """x plus the block's cross-attention over the memory K/V."""
+        h = L.rms_norm(x, bp["norm_cross"], self.cfg.norm_eps)
+        return x + L.apply_cross_attention(bp["cross"], self.cfg, h, mem_k, mem_v)
 
     def _unembed(self, params, x):
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
@@ -151,12 +197,16 @@ class Model:
 
     def _embed_inputs(self, params, tokens, extra: Optional[dict]):
         """Token embeddings; a VLM's ``extra["patches"]`` (B, P, d) go in
-        front as a prefix that attends both ways. -> (x, prefix_len)."""
+        front as a prefix that attends both ways; a model without rope adds
+        sinusoidal positions. -> (x, prefix_len)."""
         x = params["embed"][tokens]
+        prefix_len = 0
         if self.cfg.family == "vlm" and extra is not None and "patches" in extra:
             patches = extra["patches"].to(device=x.device, dtype=x.dtype)
-            return torch.cat([patches, x], dim=1), patches.shape[1]
-        return x, 0
+            x, prefix_len = torch.cat([patches, x], dim=1), patches.shape[1]
+        if self.cfg.rope_theta <= 0:
+            x = x + L.sinusoidal_positions(x.shape[1], self.cfg.d_model, x.device).to(x.dtype)
+        return x, prefix_len
 
     # ---- decode state -----------------------------------------------------------------
     def init_decode_state(self, batch: int, window: int, device=None,
@@ -184,6 +234,9 @@ class Model:
         cfg = self.cfg
         x = params["embed"][token.long()][:, None]                 # (B, 1, d)
         B = x.shape[0]
+        if cfg.rope_theta <= 0:
+            x = x + L.sinusoid_at(L.decode_positions(pos, B, x.device),
+                                  cfg.d_model).to(x.dtype)
         rope = ring = None
         new_state = []
         for bp, sig, st in zip(params["layers"], signatures(cfg), state):
@@ -197,11 +250,14 @@ class Model:
                 h, k_new, v_new = L.apply_self_attention_decode(
                     bp["mixer"], cfg, h, pos, st["k"], st["v"], cache_len, write_idx,
                     rope=rope)
-                st = {"k": k_new, "v": v_new}
+                st = dict(st, k=k_new, v=v_new)
             else:
                 h, ssm = _RECURRENT[sig[0]].step(bp["mixer"], cfg, h, st["ssm"])
-                st = {"ssm": ssm}
-            x = self._ffn(bp, x + h)
+                st = dict(st, ssm=ssm)
+            x = x + h
+            if "cross_k" in st:        # the step hands the memory K/V on as they are
+                x = self._cross(bp, x, st["cross_k"], st["cross_v"])
+            x = self._ffn(bp, x)
             new_state.append(st)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._unembed(params, x)[:, 0], new_state
@@ -211,9 +267,12 @@ class Model:
                 window_cache: int = 0, dtype=torch.float32):
         """Full-sequence walk that also builds the decode state.
 
-        tokens (B, S_text); a VLM may pass ``extra={"patches": (B, P, d)}``.
-        Returns (last_logits (B, V), state list, next_pos S), S counting the
-        patches. The default window leaves 512 slots of headroom, as the
+        tokens (B, S_text); a VLM may pass ``extra={"patches": (B, P, d)}``,
+        and an audio model must pass ``extra={"frames": (B, F, d)}`` (its
+        encoder runs on them, and every layer's cross K/V is projected from
+        the encoder's output into new tensors). Returns (last_logits (B, V),
+        state list, next_pos S), S counting the patches. The default window
+        leaves 512 slots of headroom, as the
         reference does; when S > W only the last W positions are kept,
         rolled so that position p sits at ring index p % W. A recurrent
         layer's state is the one its decode step would reach after S
@@ -221,6 +280,11 @@ class Model:
         cfg = self.cfg
         x, prefix_len = self._embed_inputs(params, tokens.long(), extra)
         B, S = x.shape[0], x.shape[1]
+        mem = None
+        if cfg.family == "audio":
+            if extra is None or "frames" not in extra:
+                raise ValueError(f"{cfg.name}: prefill needs extra={{'frames': (B, F, d)}}")
+            mem = self.encode(params, extra["frames"])
         W = window_cache or (S + 512)
         rope = L.rope_tables(torch.arange(S, device=x.device)[None],
                              cfg.head_dim, cfg.rope_theta)
@@ -243,7 +307,12 @@ class Model:
             else:
                 state.append({"ssm": _final_state(bp["mixer"], cfg, sig[0], h)})
                 h = _RECURRENT[sig[0]].apply(bp["mixer"], cfg, h)
-            x = self._ffn(bp, x + h)
+            x = x + h
+            if mem is not None:
+                mk, mv = L.project_memory_kv(bp["cross"], cfg, mem)
+                state[-1].update(cross_k=mk.to(dtype), cross_v=mv.to(dtype))
+                x = self._cross(bp, x, mk, mv)
+            x = self._ffn(bp, x)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._unembed(params, x[:, -1:])[:, 0], state, S
 

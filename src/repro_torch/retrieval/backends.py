@@ -17,18 +17,25 @@ this slice runs:
                                      scales on the device once; EDR through
                                      the int8 scan (B6), ADR through the int8
                                      fused gathered scan (B7).
+  * :class:`ShardedBackend`        (``sharded``) — the KB cut into shards, each
+                                     on its own device; one search runs B1
+                                     (ADR: B4) on every shard and merges
+                                     (``retrieval.sharded``).
+  * :class:`QuantizedShardedBackend` (``int8-sharded``) — the same over the
+                                     int8 codes and scales: B6 (ADR: B7) per
+                                     shard.
 
 The fp32 backends return identical ``(ids, scores)`` under the CANONICAL tie
 order — score descending, then id ascending — so the serving layers can swap
 them without perturbing a served token; the int8 pair is identical to each
 other and holds recall@k >= 0.95 against the fp32 scan. Backends are pure
 scans: the ``RetrieverStats`` bookkeeping lives in the retriever wrapper
-(``retrievers._TimedRetriever``). The sharded backends are a later slice
-(ROADMAP.md item 11).
+(``retrievers._TimedRetriever``). The sharded pair equals its unsharded
+kernel backend byte for byte (``retrieval.sharded``).
 """
 from __future__ import annotations
 
-from typing import Protocol, Tuple, runtime_checkable
+from typing import Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
 import torch
@@ -37,8 +44,10 @@ from repro_torch.kernels import gathered_topk as GT
 from repro_torch.kernels.dense_topk import (MAX_K, dense_topk, pad_d, scan_scratch,
                                            sm_count)
 from repro_torch.kernels.quant_topk import quant_dense_topk
+from repro_torch.retrieval import sharded as SH
 
-BACKENDS = ("numpy", "kernel", "int8", "int8-kernel")
+BACKENDS = ("numpy", "kernel", "sharded", "int8", "int8-kernel",
+            "int8-sharded")
 
 
 @runtime_checkable
@@ -438,19 +447,105 @@ class TorchQuantizedKernelBackend(_JitShapeMixin):
         return _sentinels_to_contract(ids.cpu().numpy(), scores.cpu().numpy())
 
 
-def make_backend(name: str, embeddings: np.ndarray, device=None):
+class ShardedBackend(_JitShapeMixin):
+    """The KB cut into ``n_shards`` contiguous shards of ``ceil(N / S)``
+    rows, each put ONCE on its own device (``retrieval.sharded.
+    shard_devices``: round-robin over the visible cards from ``device``'s
+    type; default one shard a card, one on the CPU). A search scans every
+    shard with its kernel (EDR: B1; ADR: B4 over the shard's own candidates)
+    and merges the shards' candidates on ``device``: one merged call, which
+    ``calls`` counts, so the fleet's one-call-per-round invariant is
+    asserted against it. Rows are zero-padded in d at upload, as in
+    :class:`TorchKernelBackend`, whose results this backend equals byte for
+    byte. The resident representation is a hook (:meth:`_encode`):
+    :class:`QuantizedShardedBackend` places int8 codes and row scales
+    instead."""
+
+    name = "sharded"
+    exact = True
+    _vec = 4                               # elements of one 16-byte copy of a row
+
+    def __init__(self, embeddings: np.ndarray, n_shards: Optional[int] = None,
+                 device=None):
+        from repro_torch import resolve_device
+        self.device = resolve_device(device)
+        self.devices = SH.shard_devices(n_shards, self.device)
+        self.n_shards = len(self.devices)
+        self.n_total, self._d = embeddings.shape
+        matrix, scales = self._encode(embeddings)
+        bounds = SH.shard_bounds(self.n_total, self.n_shards)
+        self._rows = [pad_d(_to_device(matrix[lo:hi], matrix.dtype, dev), self._vec)
+                      for (lo, hi), dev in zip(bounds, self.devices)]
+        self._scales = None if scales is None else [
+            _to_device(scales[lo:hi], np.float32, dev)
+            for (lo, hi), dev in zip(bounds, self.devices)]
+        self.kb_bytes = sum(r.numel() * r.element_size() for r in self._rows) + (
+            0 if scales is None else scales.nbytes)
+        self.calls = 0
+        self._init_shapes(self.n_total)
+
+    def _encode(self, embeddings: np.ndarray):
+        """Resident representation: ``(matrix (N, d), per-row scales | None)``."""
+        return np.asarray(embeddings, np.float32), None
+
+    def gathered_scratch_bytes(self, B: int, C: int, k: int = MAX_K) -> int:
+        """What one shard's kernel wrapper allocates at most in one
+        ``search_gathered`` (the shards run one after another), beside the
+        (B, C) shard-local candidate ids it scans."""
+        row_bytes = self._rows[0].shape[1] * 4
+        return B * C * 4 + _kernel_scratch_bytes(self.devices[0], B, C, k, row_bytes)
+
+    def pregathered_scratch_bytes(self, B: int, C: int) -> int:
+        return B * C * (self._d * 4 if self._scales is None else self._d + 4)
+
+    def search(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        q = pad_d(_to_device(queries, np.float32, self.device), self._vec)
+        scores, ids = SH.sharded_dense_topk(q, self._rows, min(k, self.n_total),
+                                            n_total=self.n_total, scales=self._scales)
+        self.calls += 1
+        return ids.cpu().numpy(), scores.cpu().numpy()
+
+    def search_gathered(self, queries: np.ndarray, cand: np.ndarray,
+                        k: int) -> Tuple[np.ndarray, np.ndarray]:
+        q = pad_d(_to_device(queries, np.float32, self.device), self._vec)
+        c = _to_device(cand, np.int64, self.device)
+        scores, ids = SH.sharded_gathered_topk(q, self._rows, c, k, n_total=self.n_total,
+                                               scales=self._scales)
+        self.calls += 1
+        return _sentinels_to_contract(ids.cpu().numpy(), scores.cpu().numpy())
+
+
+class QuantizedShardedBackend(ShardedBackend):
+    """Per-shard int8 residency: each shard holds its slice of the
+    :func:`quantize_kb` codes (zero-padded to 16 columns) and row scales,
+    scanned by B6 (ADR: B7); otherwise the fp32 sharded backend, one merged
+    call per search. Equals :class:`TorchQuantizedKernelBackend` byte for
+    byte; inexact by contract, like it."""
+
+    name = "int8-sharded"
+    exact = False
+    _vec = 16
+
+    def _encode(self, embeddings: np.ndarray):
+        return quantize_kb(embeddings)
+
+
+def make_backend(name: str, embeddings: np.ndarray, *, n_shards: Optional[int] = None,
+                 device=None):
     """Backend factory keyed by CLI name (one of :data:`BACKENDS`);
-    ``device`` is where the kernel backends keep the KB (default: CUDA)."""
+    ``device`` is where the kernel backends keep the KB (default: CUDA), and
+    ``n_shards`` the sharded backends' shard count (default: one a visible
+    card)."""
     if name == "numpy":
         return FlatBackend(embeddings)
     if name == "kernel":
         return TorchKernelBackend(embeddings, device=device)
+    if name == "sharded":
+        return ShardedBackend(embeddings, n_shards=n_shards, device=device)
     if name == "int8":
         return QuantizedFlatBackend(embeddings)
     if name == "int8-kernel":
         return TorchQuantizedKernelBackend(embeddings, device=device)
-    if name in ("sharded", "int8-sharded"):
-        raise KeyError(f"retrieval backend {name!r} is not ported yet "
-                       f"(torch.distributed sharding, ROADMAP.md item 11); "
-                       f"ported: {BACKENDS}")
+    if name == "int8-sharded":
+        return QuantizedShardedBackend(embeddings, n_shards=n_shards, device=device)
     raise KeyError(f"unknown retrieval backend {name!r}; known: {BACKENDS}")

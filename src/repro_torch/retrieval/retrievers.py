@@ -154,15 +154,18 @@ class ExactDenseRetriever(_TimedRetriever):
     ``backend`` is a :mod:`repro_torch.retrieval.backends` name (one of
     ``BACKENDS``) or an already-built backend object (one backend may serve
     an EDR and an ADR retriever, so the KB sits on the device once);
-    ``device`` is where the kernel backends keep the KB (default: CUDA)."""
+    ``device`` is where the kernel backends keep the KB (default: CUDA);
+    ``mesh_shards`` is the sharded backends' shard count (0: one shard a
+    visible card)."""
 
     name = "EDR"
 
-    def __init__(self, kb: DenseKB, backend="numpy", device=None):
+    def __init__(self, kb: DenseKB, backend="numpy", device=None, mesh_shards: int = 0):
         self.kb = kb
         self.backend: DenseSearchBackend = (
             backend if not isinstance(backend, str)
-            else make_backend(backend, kb.embeddings, device=device))
+            else make_backend(backend, kb.embeddings, device=device,
+                              n_shards=mesh_shards or None))
         self.stats = RetrieverStats("const")
 
     def _cold_shape(self, B: int, k: int) -> bool:
@@ -180,21 +183,23 @@ class IVFRetriever(_TimedRetriever):
     scan, the document scoring of which is delegated to the backend layer —
     the same execution strategies as EDR (int8 quantized included), via
     :meth:`~repro_torch.retrieval.backends.DenseSearchBackend.search_gathered`
-    over the fixed-shape padded bucket gather. ``backend`` and ``device`` mean
-    exactly what they do on :class:`ExactDenseRetriever`. The k-means, the
+    over the fixed-shape padded bucket gather. ``backend``, ``device`` and
+    ``mesh_shards`` mean exactly what they do on :class:`ExactDenseRetriever`. The k-means, the
     bucket table and the candidate matrix are the reference's, computed the
     same way in numpy, so they come out equal to its own."""
 
     name = "ADR"
 
     def __init__(self, kb: DenseKB, n_clusters: int = 64, nprobe: int = 4,
-                 iters: int = 8, seed: int = 3, backend="numpy", device=None):
+                 iters: int = 8, seed: int = 3, backend="numpy", device=None,
+                 mesh_shards: int = 0):
         self.kb = kb
         self.nprobe = nprobe
         self.stats = RetrieverStats("linear_intercept")
         self.backend: DenseSearchBackend = (
             backend if not isinstance(backend, str)
-            else make_backend(backend, kb.embeddings, device=device))
+            else make_backend(backend, kb.embeddings, device=device,
+                              n_shards=mesh_shards or None))
         g = np.random.default_rng(seed)
         X = kb.embeddings
         self.centroids = X[g.choice(X.shape[0], n_clusters, replace=False)].copy()

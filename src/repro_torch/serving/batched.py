@@ -19,7 +19,9 @@ engine would produce for the same prompt/doc schedule.
     an overlapped step can be restored a ROUND later, after siblings advanced
     or rolled back, and still rewinds exactly one slot to exactly that step.
     The price is a copy of the bundle per decode step, scatter and restore;
-    PERF.md records what it costs on the card.
+    PERF.md records what it costs on the card. A leaf that a step hands on
+    as it is (an audio decoder's cross K/V) is neither copied by a commit
+    nor by a restore that finds the same tensor.
   * slots leave a lockstep ``gen`` when they hit EOS or their own budget; a
     masked merge commits each slot's state as of its *own* last step.
   * slot lifecycle: ``admit(slot, prompt)`` prefills into a free slot,
@@ -33,7 +35,7 @@ engine would produce for the same prompt/doc schedule.
 from __future__ import annotations
 
 import time
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,16 +61,19 @@ def _set_row(cur: torch.Tensor, b: int, row: torch.Tensor) -> torch.Tensor:
 
 
 class BatchedServeEngine:
-    """N-slot greedy engine over a Model: batched decode, per-slot lifecycle."""
+    """N-slot greedy engine over a Model: batched decode, per-slot lifecycle.
+    ``extra`` goes to every per-slot prefill, as in ``ServeEngine``."""
 
     def __init__(self, model: Model, params, n_slots: int, *,
-                 cache_window: int = 2048, eos_id: int = -1):
+                 cache_window: int = 2048, eos_id: int = -1,
+                 extra: Optional[dict] = None):
         self.model = model
         self.params = params
         self.device = params["embed"].device
         self.n_slots = n_slots
         self.W = cache_window
         self.eos_id = eos_id
+        self.extra = extra
         self.stats = EngineStats()
         # per-slot bookkeeping (host side)
         self.tokens: List[List[int]] = [[] for _ in range(n_slots)]
@@ -124,7 +129,7 @@ class BatchedServeEngine:
         seq = list(self.doc[slot]) + self.tokens[slot]
         toks = torch.as_tensor(np.asarray(seq, np.int64), device=self.device)[None]
         with torch.no_grad():
-            last, state, pos = self.model.prefill(self.params, toks,
+            last, state, pos = self.model.prefill(self.params, toks, extra=self.extra,
                                                   window_cache=self.W)
         self._state = _tree_map(lambda c, r: _set_row(c, slot, r[0]),
                                 self._state, state)
@@ -202,7 +207,8 @@ class BatchedServeEngine:
     def _commit_bundle(self, current, committed, slot_list):
         mask = self._mask(slot_list)
         return _tree_map(
-            lambda n, c: torch.where(mask.reshape((-1,) + (1,) * (n.ndim - 1)), n, c),
+            lambda n, c: c if n is c else
+            torch.where(mask.reshape((-1,) + (1,) * (n.ndim - 1)), n, c),
             current, committed)
 
     def peek_logits(self, slot: int) -> np.ndarray:
@@ -264,5 +270,5 @@ class BatchedServeEngine:
             f"slot {slot}: snapshot is not from this request's lineage"
         self.tokens[slot] = self.tokens[slot][:n]
         self.doc[slot] = doc
-        self._set_bundle(_tree_map(lambda c, o: _set_row(c, slot, o[slot]),
+        self._set_bundle(_tree_map(lambda c, o: c if c is o else _set_row(c, slot, o[slot]),
                                    self._bundle(), bundle))

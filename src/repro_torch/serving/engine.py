@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,15 +46,18 @@ def _sync(device: torch.device) -> None:
 
 class ServeEngine:
     """Single-request greedy engine over a Model. ``device`` is where the
-    parameters live (the engine reads it from them)."""
+    parameters live (the engine reads it from them). ``extra`` goes to every
+    prefill, as in the reference: a VLM's ``{"patches": ...}``, an audio
+    model's ``{"frames": (1, F, d)}``."""
 
     def __init__(self, model: Model, params, *, cache_window: int = 2048,
-                 eos_id: int = -1):
+                 eos_id: int = -1, extra: Optional[dict] = None):
         self.model = model
         self.params = params
         self.device = params["embed"].device
         self.W = cache_window
         self.eos_id = eos_id
+        self.extra = extra
         self.stats = EngineStats()
         # mutable per-request state
         self.doc: Tuple[int, ...] = ()
@@ -76,7 +79,7 @@ class ServeEngine:
         seq = list(self.doc) + self.tokens
         toks = torch.as_tensor(np.asarray(seq, np.int64), device=self.device)[None]
         with torch.no_grad():
-            last, state, pos = self.model.prefill(self.params, toks,
+            last, state, pos = self.model.prefill(self.params, toks, extra=self.extra,
                                                   window_cache=self.W)
         self._last_logits = last
         self._state = state

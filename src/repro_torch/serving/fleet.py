@@ -11,11 +11,11 @@ directly, which is what bench_fleet.py measures.
 
 The merged call is backend-agnostic: it goes through ``retriever.retrieve``,
 which delegates execution to the retrieval-backend layer
-(`repro_torch.retrieval.backends`) — in the reference, with
-``--retriever-backend sharded`` (not ported yet), the one merged verification
-call per round executes as ONE collective program over the KB shards, sync
-or async/pipelined alike; here ``backend.calls == rounds + 1`` holds for the
-CUDA kernel backend (tests/test_torch_serve.py).
+(`repro_torch.retrieval.backends`) — with ``--retriever-backend sharded``
+the one merged verification call per round is one search over every KB
+shard (a scan per shard, one merge), sync or async/pipelined alike, and
+``backend.calls == rounds + 1`` holds for every backend
+(tests/test_torch_serve.py, tests/test_torch_sharded.py).
 
 Output preservation holds per slot: each slot owns a full Algorithm-1
 :class:`~repro_torch.core.ralmspec.RequestState` (cache, OS^3, ledger), verification

@@ -225,15 +225,18 @@ def test_kernel_backends_serve_any_d_and_k(d):
 
 def test_make_backend_and_retriever():
     emb = _grid(np.random.default_rng(2), 32, 8)
-    assert BACKENDS == ("numpy", "kernel", "int8", "int8-kernel")
+    assert BACKENDS == ("numpy", "kernel", "sharded", "int8", "int8-kernel",
+                        "int8-sharded")
     assert make_backend("numpy", emb).name == "numpy"
     kern = make_backend("kernel", emb, device="cpu")
     assert kern.name == "kernel" and kern.exact and kern.kb_bytes == emb.nbytes
     assert make_backend("int8", emb).name == "int8"
     assert make_backend("int8-kernel", emb, device="cpu").name == "int8-kernel"
     for name in ("sharded", "int8-sharded"):
-        with pytest.raises(KeyError, match="item 11"):
-            make_backend(name, emb)
+        b = make_backend(name, emb, n_shards=2, device="cpu")
+        assert b.name == name and b.n_shards == 2
+        assert np.array_equal(b.search(emb[:2], 5)[0], make_backend(
+            name.replace("sharded", "kernel"), emb, device="cpu").search(emb[:2], 5)[0])
     with pytest.raises(KeyError, match="known"):
         make_backend("faiss", emb)
     ids, sc = kern.search_gathered(emb[:1], np.asarray([[3, 5, -1, -1]]), 3)

@@ -1,17 +1,18 @@
-"""The port's MoE, SSM, hybrid and VLM families held against the reference
-on converted parameters, at ``reduced()`` sizes on the CPU.
+"""The port's MoE, SSM, hybrid, VLM and audio families held against the
+reference on converted parameters, at ``reduced()`` sizes on the CPU.
 
 * Per mixer: ``apply_moe_exact`` (routed and shared experts, the router's
   aux loss), Mamba, mLSTM and sLSTM — the full sequence, a run of one-token
   steps, and the state a prefill builds — against the reference functions.
 * Per config (qwen2-moe-a2.7b, kimi-k2-1t-a32b with its dense first layer,
-  xlstm-350m, jamba-v0.1-52b, paligemma-3b with and without image patches):
-  prefill logits and 8 decode steps at a scalar position and at per-slot
-  positions.
+  xlstm-350m, jamba-v0.1-52b, paligemma-3b with and without image patches,
+  whisper-base with its encoder frames): prefill logits and 8 decode steps
+  at a scalar position and at per-slot positions.
 * Serving: the port's RaLMSeq gives the reference RaLMSeq's tokens for one
   MoE, one SSM and one hybrid reduced stack, and the port's fleet gives the
   port's RaLMSeq tokens with one KB call per round; recurrent states obey
-  the engines' snapshot rules.
+  the engines' snapshot rules; whisper-base serves through engines that
+  hand its frames to every prefill, as the reference's do.
 
 Tolerance rtol = atol = 1e-4, as in ``tests/test_torch_model.py``: fp32 in
 both packages, sums in another order (and Mamba's in-chunk scan by doubling
@@ -31,6 +32,7 @@ from repro.configs import get_config, reduced
 from repro.launch.serve import build_stack as ref_build_stack
 from repro.launch.serve import make_server as ref_make_server
 from repro.models import moe as RMOE
+from repro.serving.engine import ServeEngine as RefServeEngine
 from repro.models import ssm as RSSM
 from repro.models.model import Model as RefModel
 from repro.models.model import _final_state as ref_final_state
@@ -43,11 +45,12 @@ from repro_torch.models import ssm as TSSM
 from repro_torch.models.convert import _tensors, params_from_reference
 from repro_torch.models.model import Model, _final_state, signatures
 from repro_torch.serving.batched import BatchedServeEngine
+from repro_torch.serving.engine import ServeEngine
 from repro_torch.training.data import make_queries
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 CONFIGS = ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b", "xlstm-350m", "jamba-v0.1-52b",
-           "paligemma-3b"]
+           "paligemma-3b", "whisper-base"]
 
 
 def _close(a, b):
@@ -169,10 +172,16 @@ CASES = [(name, False) for name in CONFIGS] + [("paligemma-3b", True)]
 
 
 def _patches(cfg, batch, with_patches, seed=9):
+    """The prefill's ``extra`` for the reference and the port: the VLM's
+    image patches where asked; the audio model's encoder frames always (its
+    prefill needs them)."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        f = rng.standard_normal((batch, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+        return {"frames": jnp.asarray(f)}, {"frames": torch.from_numpy(f)}
     if not with_patches:
         return None, None
-    p = np.random.default_rng(seed).standard_normal(
-        (batch, cfg.vision_patches, cfg.d_model)).astype(np.float32)
+    p = rng.standard_normal((batch, cfg.vision_patches, cfg.d_model)).astype(np.float32)
     return {"patches": jnp.asarray(p)}, {"patches": torch.from_numpy(p)}
 
 
@@ -249,7 +258,7 @@ def test_decode_step_leaves_recurrent_state_alone(name):
     so an engine snapshot of the old state stays valid."""
     cfg, _, _, port, params = _pair(name)
     _, st, pos = port.prefill(params, torch.arange(30)[None] % cfg.vocab_size,
-                              window_cache=32)
+                              extra=_patches(cfg, 1, False)[1], window_cache=32)
     before = jax.tree.map(torch.clone, st)
     port.decode_step(params, st, torch.tensor([3]), pos)
     port.decode_step(params, st, torch.tensor([3]), torch.tensor([pos]))
@@ -319,3 +328,37 @@ def test_batched_engine_keeps_idle_and_rewound_recurrent_rows(served):
     jax.tree.map(lambda a, b: np.testing.assert_array_equal(a[0].numpy(), b[0].numpy()),
                  eng._state, snap[2][0])
     assert eng.gen([0], [6]) == [first]
+
+
+def test_audio_stack_serves_with_frames_through_the_engines():
+    """whisper-base, reduced, on the reference's parameters: the port's
+    RaLMSeq over an engine that hands the frames to every prefill gives the
+    reference RaLMSeq's tokens (its engine holds the same frames), and the
+    3-slot psa fleet over a batched engine with the frames gives them too,
+    with one KB call per round; the cross K/V that a decode step hands on
+    is shared by the engine's bundle, not copied."""
+    ref = ref_build_stack("edr", n_docs=N_DOCS, arch="whisper-base",
+                          rcfg=RefRaLMConfig(max_new_tokens=MAX_NEW))
+    port = build_stack("edr", n_docs=N_DOCS, arch="whisper-base", device="cpu",
+                       backend="kernel", rcfg=RaLMConfig(max_new_tokens=MAX_NEW))
+    assert port.cfg.family == "audio"
+    port.params = params_from_reference(port.cfg, jax.tree.map(np.asarray, ref.params))
+    r_extra, t_extra = _patches(port.cfg, 1, False, seed=5)
+    prompts = [(q * 12)[:40] for q in make_queries(port.docs, 3)]
+    reng = RefServeEngine(ref.model, ref.params, cache_window=512, extra=r_extra)
+    want = [ref_make_server(ref, scheduler="seq", engine=reng).serve(p).tokens
+            for p in prompts]
+    eng = ServeEngine(port.model, port.params, cache_window=512, extra=t_extra)
+    assert [make_server(port, scheduler="seq", engine=eng).serve(p).tokens
+            for p in prompts] == want
+    st = dataclasses.replace(port, engine=None, rcfg=variant_config("psa", port.rcfg))
+    beng = BatchedServeEngine(port.model, port.params, 3, cache_window=512, extra=t_extra)
+    backend = st.retriever.backend
+    with make_server(st, scheduler="fixed", n_slots=3, engine=beng) as fleet:
+        c0 = backend.calls
+        fr = fleet.serve(prompts)
+    assert [r.tokens for r in fr.results] == want
+    assert fr.kb_calls == fr.rounds + 1 == backend.calls - c0
+    cross = beng._state[0]["cross_k"]
+    beng.gen([0], [1])
+    assert beng._state[0]["cross_k"] is cross

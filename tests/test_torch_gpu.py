@@ -108,8 +108,9 @@ def test_decode_attention_kernel_matches_plain(cuda, H, KV, hd):
 
 
 # ROADMAP fault C3: every head dim of the repo's configs and of reduced()
-# (16, 32, 112, 256), and two that pad to an instance (40 -> 64, 200 -> 256)
-@pytest.mark.parametrize("hd", [16, 32, 112, 256, 40, 200])
+# (16, 32, 112, 256), two that pad to an instance (40 -> 64, 200 -> 256),
+# and three above the widest instance (the wide-head kernel)
+@pytest.mark.parametrize("hd", [16, 32, 112, 256, 40, 200, 264, 384, 512])
 @pytest.mark.parametrize("H,KV", [(8, 1), (16, 4)])
 def test_decode_attention_kernel_matches_plain_at_every_head_dim(cuda, hd, H, KV):
     """cache_len 0, the chunk edges, W and past W at W = 512 and 513, and
@@ -181,14 +182,15 @@ def test_prefill_attention_kernel_matches_plain(cuda, S, H, KV, hd, causal, wind
                            out[b])
 
 
-@pytest.mark.parametrize("hd", [16, 32, 112, 256, 40, 200])
+@pytest.mark.parametrize("hd", [16, 32, 112, 256, 40, 200, 264, 384, 512])
 @pytest.mark.parametrize("S,H,KV,window,prefix", [
     (160, 8, 1, 0, 0), (160, 8, 1, 64, 0), (160, 8, 1, 0, 37), (33, 16, 4, 0, 0),
     (1, 8, 1, 0, 0), (513, 4, 2, 100, 0)])
 def test_prefill_attention_kernel_matches_plain_at_every_head_dim(cuda, hd, S, H, KV,
                                                                   window, prefix):
-    """ROADMAP fault C3: B3 at the configs' head dims (and two padded ones),
-    causal, sliding window and prefix, paligemma's 8 / 1 heads: B=2 within
+    """ROADMAP fault C3: B3 at the configs' head dims (two padded ones, and
+    three above 256 through the wide-head kernel), causal, sliding window and
+    prefix, paligemma's 8 / 1 heads: B=2 within
     2e-5 of the plain version, each sequence's rows equal to a B=1 call's."""
     g = torch.Generator(device=cuda).manual_seed(S + H + hd + window + prefix)
     q = torch.randn((2, S, H, hd), generator=g, device=cuda)
@@ -307,9 +309,9 @@ def test_gathered_and_int8_backends_on_cuda_match_numpy(cuda):
 
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     """What the kernels still refuse: non-contiguous input, a wrong dtype,
-    an attention head width above 256 (no config has one). Any d and any
-    k <= N (<= C, or more, for the gathered scans) are taken, and any head
-    width up to 256."""
+    k and v whose head width is not q's. Any d and any k <= N (<= C, or
+    more, for the gathered scans) are taken, and any head width: hd 264
+    launches the wide-head kernels (ROADMAP fault C3)."""
     with pytest.raises(ValueError, match="contiguous"):
         DT.dense_topk(torch.zeros((8, 2), device=cuda).T,
                       torch.zeros((300, 8), device=cuda), 1)
@@ -322,11 +324,17 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
                       torch.zeros((300, 8), device=cuda), 1)
     q = torch.zeros((1, 2, 264), device=cuda)
     kc = torch.zeros((1, 8, 2, 264), device=cuda)
-    with pytest.raises(ValueError, match="hd <= 256"):
-        DA.decode_attention(q, kc, kc, torch.ones(1, dtype=torch.int32, device=cuda))
-    with pytest.raises(ValueError, match="hd <= 256"):
-        PA.prefill_attention(q[:, None].contiguous(), kc[:, :1].contiguous(),
-                             kc[:, :1].contiguous())
+    with pytest.raises(ValueError, match="shapes"):
+        DA.decode_attention(q, kc[..., :260].contiguous(), kc[..., :260].contiguous(),
+                            torch.ones(1, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="shapes"):
+        PA.prefill_attention(q[:, None].contiguous(), kc[:, :1, :, :260].contiguous(),
+                             kc[:, :1, :, :260].contiguous())
+    before = (DA.launches, PA.launches)
+    DA.decode_attention(q, kc, kc, torch.ones(1, dtype=torch.int32, device=cuda))
+    PA.prefill_attention(q[:, None].contiguous(), kc[:, :1].contiguous(),
+                         kc[:, :1].contiguous())
+    assert (DA.launches, PA.launches) == (before[0] + 1, before[1] + 1)
     cand = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError, match="int8"):
         GT.quant_fused_gathered_topk(torch.zeros((1, 8), device=cuda),
@@ -608,6 +616,77 @@ def test_new_families_fleet_on_cuda_matches_ralmseq(cuda, arch):
     assert (DA.launches > c0[1]) == attn and (PA.launches > c0[2]) == attn
     fleet_st = dataclasses.replace(st, engine=None, rcfg=variant_config("psa", st.rcfg))
     with make_server(fleet_st, scheduler="fixed", n_slots=3) as fleet:
+        calls = DT.launches
+        fr = fleet.serve(prompts)
+    assert [r.tokens for r in fr.results] == want
+    assert DT.launches - calls == fr.kb_calls == fr.rounds + 1
+
+
+# ---------------------------------------------------------------------------------
+# the sharded backends and the audio family on the card
+# ---------------------------------------------------------------------------------
+@pytest.mark.parametrize("N,S", [(9, 4), (3001, 3), (3001, 2), (3001, 4), (70_001, 4)])
+def test_sharded_backends_on_cuda_equal_the_kernel_backends(cuda, N, S):
+    """``sharded`` == ``kernel`` and ``int8-sharded`` == ``int8-kernel`` byte
+    for byte on a tie-heavy grid KB, search and search_gathered, with an
+    empty last shard (N = 9, S = 4) and short ones; a search launches B1
+    (B6) once per nonempty shard, a gathered search B4 (B7) once per shard
+    that owns a candidate."""
+    from repro_torch.retrieval.backends import QuantizedShardedBackend, ShardedBackend
+    from repro_torch.retrieval.sharded import shard_bounds
+    rng = np.random.default_rng(N + S)
+    emb = _tie_heavy(rng, N, 40)
+    nonempty = sum(hi > lo for lo, hi in shard_bounds(N, S))
+    pairs = ((TorchKernelBackend(emb, device=cuda), ShardedBackend(emb, S, device=cuda),
+              lambda: DT.launches, lambda: GT.launches["fused_gathered_topk"]),
+             (TorchQuantizedKernelBackend(emb, device=cuda),
+              QuantizedShardedBackend(emb, S, device=cuda),
+              lambda: QT.launches, lambda: GT.launches["quant_fused_gathered_topk"]))
+    for whole, sharded, scans, gathers in pairs:
+        assert sharded.n_shards == S and all(r.is_cuda for r in sharded._rows)
+        for B in (1, 12):
+            qs = _grid(rng, B, 40)
+            cand = _ragged_cand(rng, max(B, 3), min(700, N), N)[:B].astype(np.int64)
+            for k in (1, 20, min(300, N)):
+                before = scans()
+                got = sharded.search(qs, k)
+                assert scans() - before == nonempty
+                want = whole.search(qs, k)
+                assert np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1])
+                before = gathers()
+                got = sharded.search_gathered(qs, cand, k)
+                owners = sum(bool(((cand >= lo) & (cand < hi)).any())
+                             for lo, hi in shard_bounds(N, S))
+                assert gathers() - before == owners
+                want = whole.search_gathered(qs, cand, k)
+                assert np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1])
+
+
+def test_whisper_fleet_on_cuda_matches_ralmseq(cuda):
+    """A reduced whisper-base stack on the card, its frames handed to every
+    prefill by the engines: the 3-slot psa fleet gives RaLMSeq's tokens with
+    one merged B1 call per round, and B1, B2 and B3 (the decoder's, and the
+    encoder's bidirectional) are launched."""
+    import dataclasses
+    from repro_torch.configs import RaLMConfig
+    from repro_torch.launch.serve import build_stack, make_server, variant_config
+    from repro_torch.serving.batched import BatchedServeEngine
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.training.data import make_queries
+    st = build_stack("edr", n_docs=600, arch="whisper-base", backend="kernel", device=cuda,
+                     rcfg=RaLMConfig(max_new_tokens=16))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    extra = {"frames": torch.randn((1, st.cfg.encoder_frames, st.cfg.d_model),
+                                   generator=g, device=cuda)}
+    prompts = [(q * 12)[:40] for q in make_queries(st.docs, 3)]
+    c0 = (DT.launches, DA.launches, PA.launches)
+    eng = ServeEngine(st.model, st.params, cache_window=512, extra=extra)
+    want = [make_server(st, scheduler="seq", engine=eng).serve(p).tokens for p in prompts]
+    assert all(len(t) == 16 for t in want)
+    assert DT.launches > c0[0] and DA.launches > c0[1] and PA.launches > c0[2]
+    fleet_st = dataclasses.replace(st, engine=None, rcfg=variant_config("psa", st.rcfg))
+    beng = BatchedServeEngine(st.model, st.params, 3, cache_window=512, extra=extra)
+    with make_server(fleet_st, scheduler="fixed", n_slots=3, engine=beng) as fleet:
         calls = DT.launches
         fr = fleet.serve(prompts)
     assert [r.tokens for r in fr.results] == want

@@ -207,12 +207,13 @@ def test_gathered_wrappers_pad_d_and_take_any_k(monkeypatch, d, k):
 
 @pytest.mark.parametrize("case", ["hd", "dtype", "contiguous"])
 def test_prefill_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch, case):
-    """A wrong dtype, non-contiguous input, and a head dim above the widest
-    kernel instance (256; no config has one) raise before any launch."""
+    """A wrong dtype, non-contiguous input, and k whose head dim is not q's
+    raise before any launch. Every hd itself is taken, above the widest
+    kernel instance (256) too (the wide-head kernel; ROADMAP fault C3)."""
     _kernel_path(monkeypatch)
     hd = 264 if case == "hd" else 64
     q = torch.zeros((1, 8, 4, hd), dtype=torch.float64 if case == "dtype" else torch.float32)
-    k = torch.zeros((1, 8, 2, hd))
+    k = torch.zeros((1, 8, 2, hd + 4 if case == "hd" else hd))
     if case == "contiguous":
         k = torch.zeros((1, 2, 8, hd)).transpose(1, 2)
     with pytest.raises(TypeError if case == "dtype" else ValueError):
@@ -441,8 +442,9 @@ def test_decode_attention_plain_matches_pallas(B, H, KV, hd, W):
 
 
 # ROADMAP fault C3: B2 and B3 at the head dims of the repo's configs and of
-# reduced() (kimi-k2's 112, paligemma's and xlstm's 256, reduced 16 and 32)
-@pytest.mark.parametrize("hd", [16, 32, 112, 256])
+# reduced() (kimi-k2's 112, paligemma's and xlstm's 256, reduced 16 and 32),
+# and above the widest kernel instance (264 and 512: the wide-head kernel)
+@pytest.mark.parametrize("hd", [16, 32, 112, 256, 264, 512])
 def test_decode_attention_plain_matches_pallas_at_every_head_dim(hd):
     """GQA 8 / 1 (paligemma's), per-row cache_len with a 0 row (the mean of
     v over the window) and a row past the window."""
@@ -459,7 +461,7 @@ def test_decode_attention_plain_matches_pallas_at_every_head_dim(hd):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("hd", [16, 32, 112, 256])
+@pytest.mark.parametrize("hd", [16, 32, 112, 256, 264, 512])
 @pytest.mark.parametrize("window,prefix", [(0, 0), (24, 0), (0, 19)])
 def test_prefill_attention_plain_matches_pallas_at_every_head_dim(hd, window, prefix):
     """Causal, sliding window and bidirectional prefix, 8 query heads over
@@ -478,11 +480,12 @@ def test_prefill_attention_plain_matches_pallas_at_every_head_dim(hd, window, pr
 
 
 @pytest.mark.parametrize("hd,instance", [(16, 16), (40, 64), (112, 112), (200, 256),
-                                         (6, 16)])
+                                         (6, 16), (264, 264), (266, 268), (512, 512)])
 def test_attention_wrappers_pad_hd_to_a_kernel_instance(monkeypatch, hd, instance):
-    """On the kernel path every hd <= 256 reaches a launch: the kernels'
-    own widths as they are, any other zero-padded to the next instance, with
-    the softmax scale of the real hd; the output comes back at hd."""
+    """On the kernel path every hd reaches a launch: the kernels' own widths
+    as they are, any other hd <= 256 zero-padded to the next instance, and
+    above 256 (the wide-head kernel) to a multiple of 4, with the softmax
+    scale of the real hd; the output comes back at hd."""
     from repro_torch.kernels import _build
     seen = []
 

@@ -135,7 +135,50 @@ def test_apply_rope_matches_reference(pos_shape):
 
 
 def test_unported_family_raises():
-    """Audio (whisper-base: an encoder and cross-attention) is the family
-    still to port; the MoE, SSM, hybrid and VLM families build."""
+    """Every family of the registry is ported, audio (whisper-base: an
+    encoder and cross-attention) included; a family outside the registry
+    still raises."""
+    import dataclasses
+    from repro_torch.configs import ASSIGNED_ARCHS
+    from repro_torch.models.model import PORTED_FAMILIES
+    assert {t_get_config(a).family for a in ASSIGNED_ARCHS} <= set(PORTED_FAMILIES)
+    assert Model(t_get_config("whisper-base")).cfg.family == "audio"
     with pytest.raises(NotImplementedError):
-        Model(t_get_config("whisper-base"))
+        Model(dataclasses.replace(t_get_config("whisper-base"), family="diffusion"))
+
+
+@pytest.mark.parametrize("d_model", [8, 512])
+def test_sinusoidal_positions_match_reference(d_model):
+    """The audio family's fixed positions over whisper-base's 1500 frames: a
+    run (the encoder, a prefill) and per-slot decode positions (the
+    reference's ``_sinusoid_at``). Tolerance: one float32 ulp of the largest
+    angle (1499 rad: 2**-13). The frameworks' float32 exp give frequencies
+    one ulp apart, which can move an angle by one of its ulps."""
+    from repro.models.model import _sinusoid_at
+    tol = dict(rtol=0, atol=2.0 ** -13)
+    np.testing.assert_allclose(np.asarray(RL.sinusoidal_positions(1500, d_model)),
+                               TL.sinusoidal_positions(1500, d_model).numpy(), **tol)
+    pos = np.asarray([0, 7, 1499], np.int32)
+    np.testing.assert_allclose(np.asarray(_sinusoid_at(jnp.asarray(pos), d_model)),
+                               TL.sinusoid_at(torch.from_numpy(pos)[:, None], d_model).numpy(),
+                               **tol)
+
+
+@pytest.mark.parametrize("S", [1, 9])
+def test_cross_attention_matches_reference(S):
+    """whisper-base's cross-attention at reduced width: the memory's K/V
+    projected once, then every decoder position over every frame, GQA."""
+    cfg = reduced(get_config("whisper-base"))
+    tcfg = t_reduced(t_get_config("whisper-base"))
+    rp = jax.tree.map(np.asarray, RL.init_attention(jax.random.PRNGKey(S), cfg, jnp.float32,
+                                                    cross=True))
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in rp.items()}
+    rng = np.random.default_rng(S)
+    x = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    mem = rng.standard_normal((2, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+    rk, rv = RL.project_memory_kv(rp, cfg, jnp.asarray(mem))
+    tk, tv = TL.project_memory_kv(tp, tcfg, torch.from_numpy(mem))
+    np.testing.assert_allclose(np.asarray(rk), tk.numpy(), **TOL)
+    want = RL.apply_cross_attention(rp, cfg, jnp.asarray(x), rk, rv)
+    got = TL.apply_cross_attention(tp, tcfg, torch.from_numpy(x), tk, tv)
+    np.testing.assert_allclose(np.asarray(want), got.numpy(), **TOL)

@@ -240,7 +240,7 @@ def test_cli_serves_sr_knnlm_continuous_and_faults(args, expect):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["--mesh-shards", "2"], "not ported yet"),
+    (["--mesh-shards", "-1", "--retriever-backend", "sharded"], "--mesh-shards must be >= 0"),
     (["--inject-faults", "p_error=lots", "--mode", "spec", "--concurrency", "2"],
      "--inject-faults"),
     (["--inject-faults", "p_error=0.1", "--concurrency", "2"], "--mode spec"),
@@ -272,7 +272,7 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
         "assert len(mods) >= 20 and not bad, bad\n"
         "assert {'repro_torch.core.knnlm', 'repro_torch.serving.continuous', "
         "'repro_torch.retrieval.faults', 'repro_torch.models.moe', "
-        "'repro_torch.models.ssm'} <= set(mods), mods\n")
+        "'repro_torch.models.ssm', 'repro_torch.retrieval.sharded'} <= set(mods), mods\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -287,21 +287,18 @@ def test_no_silent_cpu_fallback(monkeypatch):
 
 
 def test_capability_table_names_what_is_supported():
-    """The table is the reference's minus the sharded backends (a later
-    slice), and every rejection names the supported set."""
-    sharded = ("sharded", "int8-sharded")
-    assert CAPABILITIES == {cell: tuple(b for b in backends if b not in sharded)
-                            for cell, backends in REF_CAPABILITIES.items()}
+    """The table is the reference's, the sharded backends included, and
+    every rejection names the supported set."""
+    assert CAPABILITIES == REF_CAPABILITIES
     assert WORKLOADS == ("ralm", "knnlm")
     assert SCHEDULERS == ("seq", "single", "fixed", "continuous")
     for kw, msg in ((dict(retriever="sr", workload="knnlm"), "supported: edr, adr"),
                     (dict(retriever="sr", backend="kernel"), r"supported: numpy\)$"),
-                    (dict(retriever="edr", backend="sharded"),
-                     "supported: numpy, kernel, int8, int8-kernel"),
-                    (dict(retriever="adr", backend="int8-sharded"),
-                     "supported: numpy, kernel, int8, int8-kernel"),
-                    (dict(retriever="edr", workload="knnlm", backend="sharded"),
-                     "supported: numpy, kernel, int8, int8-kernel"),
+                    (dict(retriever="sr", backend="sharded"), r"supported: numpy\)$"),
+                    (dict(retriever="edr", backend="faiss"),
+                     "supported: numpy, kernel, sharded, int8, int8-kernel, int8-sharded"),
+                    (dict(retriever="adr", workload="knnlm", backend="int8-shard"),
+                     "supported: numpy, kernel, sharded, int8, int8-kernel, int8-sharded"),
                     (dict(retriever="edr", workload="moe"),
                      "supported: ralm, knnlm")):
         retriever = kw.pop("retriever")
@@ -310,6 +307,12 @@ def test_capability_table_names_what_is_supported():
     st = build_stack("adr", n_docs=200, backend="int8-kernel", device="cpu")
     assert isinstance(st.retriever, IVFRetriever)
     assert st.retriever.backend.name == "int8-kernel"
+    for retriever, workload, backend in (("edr", "ralm", "sharded"),
+                                         ("adr", "ralm", "int8-sharded"),
+                                         ("edr", "knnlm", "sharded")):
+        sh = build_stack(retriever, n_docs=200, workload=workload, backend=backend,
+                         mesh_shards=3, knn_entries=500, device="cpu")
+        assert sh.retriever.backend.name == backend and sh.retriever.backend.n_shards == 3
     with pytest.raises(ValueError, match="fixed, continuous"):
         make_server(st, scheduler="sharded")
     st = build_stack("sr", n_docs=50, device="cpu")
