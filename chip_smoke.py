@@ -67,10 +67,25 @@
    and 6 decoder layers, its engines handing (1, 1500, 512) frames from
    numpy seed 0 to every prefill: B1, B2, and B3 in the decoder and
    bidirectionally in the encoder), each with its peak device memory and
-   one timed re-prefill (whisper's encoder share apart); last, the engine checks (batch variance,
-   snapshot cost, a profiled decode step and re-prefill) on the gpt2
-   weights drawn again from their seed;
-5. one JSON line with every kernel's numbers, the script's total seconds,
+   one timed re-prefill (whisper's encoder share apart); then phase 5;
+   last, the engine checks (batch variance, snapshot cost, a profiled
+   decode step and re-prefill) on the gpt2 weights drawn again from their
+   seed;
+5. training: one train step at ``reduced()`` size for a dense, a MoE
+   (capacity dispatch), an SSM, a VLM and an audio config, on the card and
+   on the CPU from the same parameters and batch (loss, aux, grad norm and
+   updated parameters agree); B3 and B2 refuse CUDA inputs that require
+   grad. Then knnlm-247m as published (16 layers, d_model 1024, 247M
+   parameters) trained through ``launch.train.train`` for 50 steps of
+   SyntheticLM 8 x 128 with AdamW: the loss must fall; ms a step (CUDA
+   events), tokens/s, peak device memory, the attention core's share of a
+   step and the step's parts (forward, backward, AdamW) timed alone; the
+   eval loss through B3 against the differentiable route
+   (1e-5 relative), ``forward(last_only=True)`` through B3, a 2-microbatch
+   step against the 1-microbatch step, and a checkpoint saved and restored
+   byte for byte. The train steps launch no kernel; the eval pass and the
+   last_only forward launch B3 (counted with the serving paths' launches);
+6. one JSON line with every kernel's numbers, the script's total seconds,
    the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the exit code is not 0. Without a CUDA device it
@@ -1398,6 +1413,217 @@ def _leaves(tree):
     return [tree]
 
 
+# ---------------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------------
+TRAIN_REDUCED = ("llama3.2-1b", "qwen2-moe-a2.7b", "xlstm-350m", "paligemma-3b",
+                 "whisper-base")             # dense, MoE (capacity), SSM, VLM, audio
+TRAIN_ARCH = "knnlm-247m"
+TRAIN_WANT = (16, 1024, 16, 16, 64, 50304)   # layers, d_model, heads, KV heads, hd, vocab
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 50, 8, 128
+STEP_TOL = 1e-4        # loss, aux, grad norm: rtol = atol, as tests/test_torch_training.py
+PARAM_ATOL = 2e-5      # parameters after a step, where |first moment| >= 1e-6
+
+
+def params_close(a, b, mu, lr: float, what: str) -> float:
+    """Two parameter trees after the same Adam step: within PARAM_ATOL where
+    the step's first moment is at least 1e-6 in magnitude, and within 2 lr
+    below it (there Adam's normalised step turns rounding into a step of up
+    to lr either way: tests/test_torch_training.py). -> the largest
+    difference over the first kind."""
+    from repro_torch.training.optimizer import tree_leaves
+    worst = 0.0
+    for x, y, m in zip(tree_leaves(a), tree_leaves(b), tree_leaves(mu)):
+        err = (x.to(y.device) - y).abs()
+        noisy = m.to(y.device).abs() < 1e-6
+        worst = max(worst, float(torch.where(noisy, 0.0, err).max()))
+        check(float(err.max()) <= 2 * lr, f"{what}: a parameter moved more than 2 lr apart")
+    check(worst <= PARAM_ATOL, f"{what}: parameters {worst:.3g} apart")
+    return worst
+
+
+def check_train_reduced(dev) -> None:
+    """One train step at ``reduced()`` size per family, from the same
+    parameters (drawn on the CPU from seed 0) and SyntheticLM batch (4 x 32,
+    zero frames or patches), on the card and on the CPU: loss, aux, grad
+    norm and the updated parameters agree. Then B3 and B2 refuse CUDA inputs
+    that require grad, and launch nothing."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.prefill_attention import prefill_attention
+    from repro_torch.launch.train import add_extra
+    from repro_torch.models.model import Model
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, init_adamw, tree_map
+    from repro_torch.training.trainer import make_train_step, to_device
+    cpu = torch.device("cpu")
+    for arch in TRAIN_REDUCED:
+        cfg = reduced(get_config(arch))
+        params = Model(cfg).init(torch.Generator().manual_seed(0))
+        batch = add_extra(cfg, SyntheticLM(cfg.vocab_size, 32, 4).batch(1))
+        out = {}
+        for d in (cpu, dev):
+            p = tree_map(lambda t: t.to(d), params)
+            step = make_train_step(Model(cfg), AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                            total_steps=10))
+            out[d.type] = step(p, init_adamw(p), to_device(batch, d))
+        (p0, s0, m0), (p1, _, m1) = out["cpu"], out["cuda"]
+        for k in ("loss", "aux", "grad_norm", "lr"):
+            a, b = float(m0[k]), float(m1[k])
+            check(abs(a - b) <= STEP_TOL * (1 + abs(a)), f"train {arch}: {k} cpu {a} card {b}")
+        worst = params_close(p0, p1, s0.mu, float(m0["lr"]), f"train {arch}")
+        print(f"train step, reduced {arch} ({cfg.family}): loss cpu {float(m0['loss']):.6f} "
+              f"card {float(m1['loss']):.6f}, aux {float(m1['aux']):.6f}, grad norm cpu "
+              f"{float(m0['grad_norm']):.6f} card {float(m1['grad_norm']):.6f}, params "
+              f"{worst:.2e} apart")
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((1, 16, 4, 64), generator=g, device=dev).requires_grad_()
+    k = torch.randn((1, 16, 4, 64), generator=g, device=dev)
+    lens = torch.full((1,), 16, dtype=torch.int32, device=dev)
+    before = read_counts()
+    for name, call in (("B3", lambda: prefill_attention(q, k, k)),
+                       ("B2", lambda: decode_attention(q[:, 0], k, k, lens))):
+        try:
+            call()
+        except RuntimeError as e:
+            check("no backward" in str(e), f"{name}: {e}")
+        else:
+            raise RuntimeError(f"check failed: {name} ran on inputs that require grad")
+    check(read_counts() == before, "a wrapper launched on inputs that require grad")
+    print("B3 and B2 refuse CUDA inputs that require grad (nothing launched)")
+
+
+def train_full(dev) -> dict:
+    """knnlm-247m as published, trained through ``launch.train.train`` (the
+    CLI's loop): SyntheticLM batches of 8 x 128, AdamW with 20 warmup steps,
+    50 steps; the loss must fall. Prints ms per step (CUDA events, steps 11-50),
+    tokens/s, peak device memory, the attention core's share of a step
+    (plain attention forward and backward at the step's shape, x 16 layers),
+    and the step's parts timed alone (forward, forward + backward, AdamW).
+    Then the eval step (B3, no grad) against the differentiable route's
+    loss within 1e-5 relative, ``forward(last_only=True)`` (B3) against the
+    last position of the full logits, a 2-microbatch step against the
+    1-microbatch step, and a checkpoint saved and restored byte for byte.
+    The launch counts are set to 0 before training and read after the eval
+    pass and the last_only forward, which launch B3; the train steps launch
+    nothing. -> those counts."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models.layers import plain_attention
+    from repro_torch.training.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_update, decay_mask,
+                                                tree_leaves)
+    from repro_torch.training.trainer import (make_eval_step, make_loss_fn,
+                                              make_train_step, to_device, value_and_grad)
+    cfg = get_config(TRAIN_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+           cfg.vocab_size) == TRAIN_WANT, f"{TRAIN_ARCH} is not full width: {cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, params, opt, hist = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                                     seq=TRAIN_SEQ, device=dev, log_every=10)
+    wall = time.perf_counter() - t0
+    check(sum(read_counts().values()) == 0, f"a kernel launched in a train step: "
+                                            f"{read_counts()}")
+    losses = hist["loss"]
+    check(np.isfinite(losses).all() and np.isfinite(hist["grad_norm"]).all(),
+          "non-finite loss or grad norm")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"the loss did not fall: {first:.4f} -> {last:.4f}")
+    step_ms = statistics.median(hist["ms"][10:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"train {TRAIN_ARCH}: {n_params / 1e6:.1f}M params, {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} in {wall:.1f} s; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (mean of the first 5 {first:.4f}, of the last 5 {last:.4f}); "
+          f"{step_ms:.2f} ms a step (CUDA events, median of steps 11-{TRAIN_STEPS}; first "
+          f"step {hist['ms'][0]:.1f} ms), {tokens / step_ms * 1e3:.0f} tokens/s; peak "
+          f"device memory {peak:.2f} GiB")
+    g = torch.Generator(device=dev).manual_seed(1)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.head_dim)
+    q, k, v, cot = (torch.randn(shape, generator=g, device=dev) for _ in range(4))
+    for t in (q, k, v):
+        t.requires_grad_()
+    attn_ms = cuda_ms(lambda: torch.autograd.grad(plain_attention(q, k, v), (q, k, v), cot))
+    print(f"train {TRAIN_ARCH}: attention core (plain, causal) forward + backward at "
+          f"{shape}: {attn_ms:.4f} ms a layer, {cfg.num_layers * attn_ms:.3f} ms a step "
+          f"= {cfg.num_layers * attn_ms / step_ms * 100:.1f}% of the step")
+    del q, k, v, cot
+    # the step's parts, each timed alone on the trained state and batch 51
+    batch = to_device(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+                      .batch(TRAIN_STEPS + 1), dev)
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=TRAIN_STEPS)
+    loss_fn, mask = make_loss_fn(model), decay_mask(cfg, params)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: loss_fn(params, batch), windows=5, inner=1)
+    fb_ms = cuda_ms(lambda: value_and_grad(loss_fn, params, batch), windows=5, inner=1)
+    grads = value_and_grad(loss_fn, params, batch)[2]
+    upd_ms = cuda_ms(lambda: adamw_update(opt_cfg, grads, opt, params, mask),
+                     windows=5, inner=1)
+    del grads
+    print(f"train {TRAIN_ARCH}: a step's parts alone: forward {fwd_ms:.2f} ms (no grad), "
+          f"forward + backward {fb_ms:.2f} ms, AdamW update {upd_ms:.2f} ms over "
+          f"{len(tree_leaves(params))} leaves ({fb_ms / step_ms * 100:.1f}% and "
+          f"{upd_ms / step_ms * 100:.1f}% of the {step_ms:.2f} ms step)")
+
+    ev = make_eval_step(model)(params, batch)
+    with torch.no_grad():
+        ref_total, _ = make_loss_fn(model)(params, batch)
+        full, _ = model.forward(params, batch["tokens"], differentiable=True)
+        last_logits, _ = model.forward(params, batch["tokens"], last_only=True)
+    rel = abs(float(ev["total"]) - float(ref_total)) / abs(float(ref_total))
+    check(rel <= 1e-5, f"eval loss through B3 {float(ev['total'])} vs the differentiable "
+                       f"route {float(ref_total)}")
+    last_err = float((last_logits[:, 0] - full[:, -1]).abs().max())
+    check(last_err <= 1e-4, f"last_only logits {last_err:.3g} from the full pass")
+    counts = read_counts()
+    check(counts["prefill_attention"] > 0, f"B3 was not launched in training's eval: {counts}")
+    eval_ms = cuda_ms(lambda: make_eval_step(model)(params, batch), windows=5, inner=1)
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: make_loss_fn(model)(params, batch), windows=5, inner=1)
+    print(f"train {TRAIN_ARCH}: eval loss through B3 {float(ev['total']):.6f}, through the "
+          f"differentiable route {float(ref_total):.6f} ({rel:.2e} relative); last_only "
+          f"logits {last_err:.2e} from the full pass; eval pass {eval_ms:.2f} ms (B3) vs "
+          f"{plain_ms:.2f} ms (plain attention)")
+    del full, last_logits
+
+    batch = to_device(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+                      .batch(TRAIN_STEPS + 2), dev)
+    p1, s1, m1 = make_train_step(model, opt_cfg)(params, opt, batch)
+    p2, _, m2 = make_train_step(model, opt_cfg, num_microbatches=2)(params, opt, batch)
+    for key in ("loss", "grad_norm"):
+        a, b = float(m1[key]), float(m2[key])
+        check(abs(a - b) <= STEP_TOL * (1 + abs(a)), f"microbatches: {key} {a} vs {b}")
+    worst = params_close(p1, p2, s1.mu, float(m1["lr"]), "2 microbatches")
+    print(f"train {TRAIN_ARCH}: 2 microbatches vs 1: loss {float(m2['loss']):.6f} vs "
+          f"{float(m1['loss']):.6f}, grad norm {float(m2['grad_norm']):.6f} vs "
+          f"{float(m1['grad_norm']):.6f}, params {worst:.2e} apart")
+    del p1, s1, p2
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        save_checkpoint(d, TRAIN_STEPS, cfg, params, opt)
+        t_save = time.perf_counter() - t
+        t = time.perf_counter()
+        p_back, o_back, manifest = restore_checkpoint(d, TRAIN_STEPS, cfg, device=dev)
+        t_load = time.perf_counter() - t
+    a, b = tree_leaves((params, opt)), tree_leaves((p_back, o_back))
+    check(len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                   for x, y in zip(a, b)),
+          "a restored checkpoint differs from what was saved")
+    print(f"train {TRAIN_ARCH}: checkpoint of {manifest['n_arrays']} arrays, "
+          f"{manifest['bytes'] / 2**30:.2f} GiB, saved in {t_save:.1f} s and restored in "
+          f"{t_load:.1f} s, byte for byte")
+    print(f"train {TRAIN_ARCH}: launches {({n: c for n, c in counts.items() if c})}")
+    return counts
+
+
 def engine_checks(stack, prompts, dev) -> None:
     """Batch variance of the decode step, the cost of functional snapshots,
     and where a decode step and a re-prefill spend their time."""
@@ -1619,6 +1845,11 @@ def main(argv) -> int:
         paths[arch] = serve_family(arch, want, stack, prompts[:FAMILY_PROMPTS], dev)
         gc.collect()
         torch.cuda.empty_cache()
+    # phase 5: training, the reduced families card against CPU, then knnlm-247m
+    check_train_reduced(dev)
+    paths["train " + TRAIN_ARCH] = train_full(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     counts = {n: sum(c[n] for c in paths.values()) for n in check_counts}
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)

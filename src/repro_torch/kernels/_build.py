@@ -125,6 +125,21 @@ def on_cpu(what: str, *tensors) -> bool:
     return False
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """The attention kernels have no backward: a ctypes launch writes its
+    output into a tensor autograd knows nothing of, so a training pass
+    through one would lose every gradient behind it without an error. Raise
+    when grad mode is on and an input requires grad, on the CPU too, so that
+    a CPU test catches a training route that reaches a wrapper."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward and its inputs require grad; "
+            "train through the differentiable route (models.layers."
+            "apply_self_attention, Model.forward(differentiable=True)), or run "
+            "the kernel under torch.no_grad()")
+
+
 def check_kernel_inputs(what: str, dtype, *tensors) -> None:
     """The CUDA entry points take contiguous, 16-byte aligned tensors of one
     dtype; raise on anything else rather than launching on it."""

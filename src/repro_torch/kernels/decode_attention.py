@@ -14,7 +14,8 @@ reference's is. Every caller on the serving path has cache_len >= 1.
 up to :data:`MAX_HD` is zero-padded to the next of them, with the real hd's
 softmax scale; above it a separate wide-head kernel takes hd zero-padded to
 a multiple of 4), and :func:`decode_attention_plain` on CPU tensors.
-``launches`` counts kernel launches. The kernel splits each slot's cache into chunks of
+``launches`` counts kernel launches. The kernel has no backward: the wrapper
+raises on inputs that require grad under grad mode, on either device. The kernel splits each slot's cache into chunks of
 :data:`CHUNK` entries. The wrapper keeps, per device, the scratch for the
 chunks' partials and a zeroed ticket buffer, which each launch leaves
 zeroed; both are made (or grown) on a call, so before any CUDA-graph
@@ -107,6 +108,7 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     if H % KV or cache_len.shape != (B,):
         raise ValueError(f"decode_attention: H={H} KV={KV} cache_len "
                          f"{tuple(cache_len.shape)}")
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     if _build.on_cpu("decode_attention", q, k_cache, v_cache, cache_len):
         return decode_attention_plain(q, k_cache, v_cache, cache_len)
     n = instance_hd(hd)

@@ -11,7 +11,9 @@ optional sliding ``window``, GQA.
 hd up to 256 zero-padded to the next of them with the real hd's softmax
 scale; above 256 a separate wide-head kernel takes hd zero-padded to a
 multiple of 4), and :func:`prefill_attention_plain` on CPU tensors.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches. The kernel has no backward: the wrapper
+raises on inputs that require grad under grad mode, on either device
+(training attends through ``models.layers.apply_self_attention``).
 """
 from __future__ import annotations
 
@@ -83,6 +85,7 @@ def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"prefill_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     KV = k.shape[2]
+    _build.refuse_grad("prefill_attention", q, k, v)
     if _build.on_cpu("prefill_attention", q, k, v):
         return prefill_attention_plain(q, k, v, causal=causal, window=window,
                                        prefix_len=prefix_len)

@@ -4,12 +4,18 @@ positions, the SwiGLU MLP, self-attention, and the audio decoder's
 cross-attention over its encoder's memory.
 
 Weights keep the reference layout, ``(d_in, d_out)``, so ``x @ w`` here is the
-reference's ``einsum("...d,df->...f")``. Attention goes through the kernel
-wrappers: :func:`repro_torch.kernels.prefill_attention.prefill_attention` on
-the full sequence and :func:`repro_torch.kernels.decode_attention.decode_attention`
-on one decode step; each runs its CUDA kernel on the card and its plain
-version on the CPU. Cross-attention is plain PyTorch on both, as the
-reference's is plain jnp outside any Pallas kernel.
+reference's ``einsum("...d,df->...f")``. Serving attention goes through the
+kernel wrappers: :func:`repro_torch.kernels.prefill_attention.prefill_attention`
+on the full sequence (:func:`attend_full`) and
+:func:`repro_torch.kernels.decode_attention.decode_attention` on one decode
+step; each runs its CUDA kernel on the card and its plain version on the CPU.
+The kernels have no backward, so training goes another route:
+:func:`apply_self_attention` over :func:`plain_attention` and
+:func:`blockwise_attention`, PyTorch copies of the reference's jnp training
+attention that autograd differentiates on either device. The caller picks the
+route (``Model.forward(differentiable=...)``); a kernel wrapper handed a
+tensor that requires grad raises. Cross-attention is plain PyTorch on both,
+as the reference's is plain jnp outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -144,6 +150,107 @@ def self_attention_qkv(p: dict, cfg, x: torch.Tensor, rope):
     cache."""
     q, k, v = _project_qkv(p, cfg, x, x)
     return rotate(q, rope), rotate(k, rope), v
+
+
+_NEG_INF = -1e30
+
+
+def _mask_block(qi, kj, *, causal: bool, window: int, prefix_len: int,
+                valid_len=None) -> torch.Tensor:
+    """(bq, bk) boolean allowed-mask for global query positions qi (bq,) and
+    key positions kj (bk,): the reference's ``layers._mask_block``."""
+    qi_, kj_ = qi[:, None], kj[None, :]
+    allowed = torch.ones((qi.shape[0], kj.shape[0]), dtype=torch.bool, device=qi.device)
+    if causal:
+        c = kj_ <= qi_
+        if prefix_len > 0:
+            c = c | ((qi_ < prefix_len) & (kj_ < prefix_len))
+        allowed = allowed & c
+    if window > 0:
+        allowed = allowed & (kj_ > qi_ - window)
+    if valid_len is not None:
+        allowed = allowed & (kj_ < valid_len)
+    return allowed
+
+
+def plain_attention(q, k, v, *, causal=True, window=0, prefix_len=0, scale=None):
+    """The reference's ``plain_attention``: q (B, S, H, hd), k/v (B, T, KV,
+    hd) -> (B, S, H, hd) through the full (S, T) score matrix, differentiable."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.float().reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,btkh->bqkgt", qg, k.float()) * scale
+    msk = _mask_block(torch.arange(S, device=q.device), torch.arange(T, device=q.device),
+                      causal=causal, window=window, prefix_len=prefix_len)
+    s = s.masked_fill(~msk[None, :, None, None, :], _NEG_INF)
+    out = torch.einsum("bqkgt,btkh->bqkgh", torch.softmax(s, dim=-1), v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def blockwise_attention(q, k, v, *, causal=True, window=0, prefix_len=0,
+                        q_chunk=1024, kv_chunk=1024, scale=None):
+    """The reference's ``blockwise_attention``: online softmax over
+    ``kv_chunk`` keys at a time for each ``q_chunk`` of queries, so no (S, T)
+    score matrix is built. Causal chunks wholly above the diagonal (or, with
+    a ``window``, wholly before it) are skipped, not masked, by the
+    reference's static per-chunk bounds, so the work is ~S^2/2. S and T are
+    zero-padded to their chunk multiples and the padded keys masked."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    q_chunk, kv_chunk = min(q_chunk, S), min(kv_chunk, T)
+    n_q, n_kv = -(-S // q_chunk), -(-T // kv_chunk)
+    q = F.pad(q, (0, 0, 0, 0, 0, n_q * q_chunk - S))
+    k = F.pad(k, (0, 0, 0, 0, 0, n_kv * kv_chunk - T))
+    v = F.pad(v, (0, 0, 0, 0, 0, n_kv * kv_chunk - T))
+    qg = q.float().reshape(B, n_q, q_chunk, KV, G, hd)
+    kg = k.float().reshape(B, n_kv, kv_chunk, KV, hd)
+    vg = v.float().reshape(B, n_kv, kv_chunk, KV, hd)
+    dev = q.device
+    outs = []
+    for qi in range(n_q):
+        q_blk = qg[:, qi]                                      # (B, bq, KV, G, hd)
+        q_idx = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        acc = torch.zeros((B, q_chunk, KV, G, hd), dtype=torch.float32, device=dev)
+        m = torch.full((B, q_chunk, KV, G), _NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, q_chunk, KV, G), dtype=torch.float32, device=dev)
+        hi = min(n_kv, ((qi + 1) * q_chunk - 1) // kv_chunk + 1) if causal else n_kv
+        lo = max(0, (qi * q_chunk - window) // kv_chunk) if causal and window > 0 else 0
+        for kj in range(lo, hi):
+            k_idx = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
+            s = torch.einsum("bqkgh,btkh->bkgqt", q_blk, kg[:, kj]) * scale
+            msk = _mask_block(q_idx, k_idx, causal=causal, window=window,
+                              prefix_len=prefix_len, valid_len=T)
+            s = s.masked_fill(~msk, _NEG_INF).permute(0, 3, 1, 2, 4)  # (B, bq, KV, G, bk)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bqkgt,btkh->bqkgh", p, vg[:, kj])
+            m = m_new
+        outs.append((acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype))
+    out = torch.stack(outs, 1).reshape(B, n_q * q_chunk, H, hd)
+    return out[:, :S]
+
+
+def apply_self_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+                         causal=True, window=0, prefix_len=0, q_chunk=1024,
+                         kv_chunk=1024) -> torch.Tensor:
+    """Full-sequence self-attention on the differentiable route (the
+    reference's ``apply_self_attention``, what training runs): project, rope
+    at ``positions`` (1, S), then :func:`plain_attention` up to S =
+    max(q_chunk, 2048) and :func:`blockwise_attention` above, then W_o."""
+    q, k, v = self_attention_qkv(p, cfg, x, rope_tables(positions, cfg.head_dim,
+                                                        cfg.rope_theta))
+    S = x.shape[1]
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
+    if S <= max(q_chunk, 2048):
+        out = plain_attention(q, k, v, **kw)
+    else:
+        out = blockwise_attention(q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk, **kw)
+    return out.reshape(x.shape[0], S, -1) @ p["wo"]
 
 
 def attend_full(p: dict, q, k, v, *, causal=True, window=0, prefix_len=0):

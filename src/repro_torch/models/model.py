@@ -3,9 +3,18 @@
 Mamba, attention and MoE), VLM (PaliGemma: image patches as a
 bidirectional prefix) and audio (Whisper: an encoder over precomputed frame
 embeddings, and a decoder with cross-attention over its output).
-``init``, ``encode``, ``init_decode_state``, ``prefill`` and
-``decode_step``; ``forward`` (the full-sequence training pass) and
-``decode_step_stacked`` (the dry-run's) are not ported yet (ROADMAP.md).
+``init``, ``encode``, ``forward`` (the full-sequence pass that training
+runs), ``init_decode_state``, ``prefill`` and ``decode_step``;
+``decode_step_stacked`` (the dry-run's) is not ported yet (ROADMAP.md).
+
+``forward`` takes its attention route from the caller: with
+``differentiable=True`` (the train step) every self-attention, the audio
+encoder's included, runs ``layers.apply_self_attention`` (plain or
+blockwise, as the reference trains), which autograd differentiates; with
+``differentiable=False`` (eval, ``last_only``) it runs ``layers.attend_full``,
+the B3 kernel on the card, which has no backward and refuses inputs that
+require grad. Its MoE layers run the capacity dispatch (``moe.apply_moe``),
+as the reference's ``forward`` does; prefill and decode run the dropless one.
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
 ``unembed`` (d, V) unless embeddings are tied, and ``layers``, one dict per
@@ -32,6 +41,7 @@ from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -156,23 +166,91 @@ class Model:
         return params
 
     # ---- encoder (audio) --------------------------------------------------------------
-    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, params, frames: torch.Tensor, *,
+               differentiable: bool = False) -> torch.Tensor:
         """frames (B, F, d): the precomputed frame embeddings of the stubbed
         conv frontend, as in the reference -> the encoder's output (B, F,
         d): sinusoidal positions, then bidirectional self-attention blocks
-        (B3 with ``causal=False``) and a final norm."""
+        (B3 with ``causal=False``, or ``apply_self_attention`` when
+        ``differentiable``) and a final norm."""
         cfg = self.cfg
         enc = params["encoder"]
         x = frames.to(device=enc["final_norm"].device, dtype=enc["final_norm"].dtype)
         x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
-        rope = L.rope_tables(torch.arange(x.shape[1], device=x.device)[None],
-                             cfg.head_dim, cfg.rope_theta)
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         for bp in enc["layers"]:
             h = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
-            q, k, v = L.self_attention_qkv(bp["mixer"], cfg, h, rope)
-            x = x + L.attend_full(bp["mixer"], q, k, v, causal=False)
+            if differentiable:
+                x = x + L.apply_self_attention(bp["mixer"], cfg, h, positions, causal=False)
+            else:
+                q, k, v = L.self_attention_qkv(bp["mixer"], cfg, h, rope)
+                x = x + L.attend_full(bp["mixer"], q, k, v, causal=False)
             x = self._ffn(bp, x)
         return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+    # ---- full-sequence forward (training) -----------------------------------------------
+    def forward(self, params, tokens: torch.Tensor, *, extra: Optional[dict] = None,
+                window: int = 0, last_only: bool = False, remat: bool = False,
+                differentiable: bool = False):
+        """tokens (B, S_text) -> (logits (B, S, V), aux loss), the reference's
+        ``Model.forward``: S counts a VLM's ``extra["patches"]`` (a
+        bidirectional prefix); an audio model encodes ``extra["frames"]``.
+        ``last_only`` unembeds the last position only. ``remat`` recomputes
+        each block in the backward pass instead of keeping its activations
+        (``torch.utils.checkpoint``, non-reentrant). ``differentiable``
+        picks the attention route (module docstring): True for a pass that
+        autograd differentiates, False for B3. The aux loss is the sum of
+        the MoE layers' router losses."""
+        cfg = self.cfg
+        x, prefix_len = self._embed_inputs(params, tokens.long(), extra)
+        mem = None
+        if cfg.family == "audio":
+            mem = self.encode(params, extra["frames"], differentiable=differentiable)
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+        def block(bp, sig, x):
+            return self._block(bp, sig, x, positions, rope, mem=mem, window=window,
+                               prefix_len=prefix_len, differentiable=differentiable)
+
+        aux = x.new_zeros((), dtype=torch.float32)
+        for bp, sig in zip(params["layers"], signatures(cfg)):
+            x, a = (checkpoint(block, bp, sig, x, use_reentrant=False) if remat
+                    else block(bp, sig, x))
+            aux = aux + a
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if last_only:
+            x = x[:, -1:]
+        return self._unembed(params, x), aux
+
+    def _block(self, bp, sig, x, positions, rope, *, mem=None, window=0, prefix_len=0,
+               differentiable=False):
+        """One layer of the full-sequence pass (the reference's
+        ``_apply_block``) -> (x, the layer's MoE aux loss): the mixer
+        (self-attention by the route ``differentiable`` names, or a
+        recurrent mixer's full sequence), the audio cross-attention over
+        ``mem``, then the capacity MoE or the FFN."""
+        cfg = self.cfg
+        h = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
+        if sig[0] != "attn":
+            h = _RECURRENT[sig[0]].apply(bp["mixer"], cfg, h)
+        elif differentiable:
+            h = L.apply_self_attention(bp["mixer"], cfg, h, positions, window=window,
+                                       prefix_len=prefix_len)
+        else:
+            q, k, v = L.self_attention_qkv(bp["mixer"], cfg, h, rope)
+            h = L.attend_full(bp["mixer"], q, k, v, window=window, prefix_len=prefix_len)
+        x = x + h
+        if mem is not None:
+            x = self._cross(bp, x, *L.project_memory_kv(bp["cross"], cfg, mem))
+        aux = x.new_zeros((), dtype=torch.float32)
+        if "moe" in bp:
+            h, aux = MOE.apply_moe(bp["moe"], cfg, L.rms_norm(x, bp["norm2"], cfg.norm_eps))
+            x = x + h
+        elif "ffn" in bp:
+            x = x + L.apply_mlp(bp["ffn"], L.rms_norm(x, bp["norm2"], cfg.norm_eps))
+        return x, aux
 
     def _cross(self, bp, x, mem_k, mem_v):
         """x plus the block's cross-attention over the memory K/V."""

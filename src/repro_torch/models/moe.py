@@ -1,12 +1,18 @@
-"""Mixture-of-experts FFN, serving form (the reference's ``repro.models.moe``:
-``init_moe``, ``_router`` and the dropless ``apply_moe_exact``).
+"""Mixture-of-experts FFN (the reference's ``repro.models.moe``): ``init_moe``,
+``_router``, the dropless ``apply_moe_exact`` that serving runs, and the
+capacity dispatch ``apply_moe`` that ``Model.forward`` (training) runs.
 
 ``apply_moe_exact`` computes every expert for every token and weights the
 results by the router's renormalised top-k probabilities, so a token's output
 does not depend on which other tokens share its batch: prefill, decode and a
 re-decode after rollback agree. It reads every expert's weights on each call
-(O(T * E) work), which is what the serving path pays; the capacity dispatch
-that training uses is not ported yet (ROADMAP.md).
+(O(T * E) work), which is what the serving path pays.
+
+``apply_moe`` cuts the tokens into chunks of ``dispatch_chunk`` (the last
+padded with zero rows, which are routed like any token) and gives each
+expert C = ceil(Tc * k / E * capacity_factor) slots per chunk; an assignment
+past its expert's C is dropped. Which ones drop depends on the chunking and
+on the flat (token, choice) order, so both follow the reference exactly.
 
 Expert weights are stacked ``(E, d, f)`` / ``(E, f, d)`` as in the
 reference, and the dense products go to ``torch.matmul``.
@@ -49,7 +55,10 @@ def _router(p: dict, m, x2d: torch.Tensor):
     (load balance + router z-loss) is the training objective's term."""
     logits = x2d.float() @ p["router"]
     probs = torch.softmax(logits, dim=-1)
-    topw, topi = torch.topk(probs, m.top_k, dim=-1)
+    # jax.lax.top_k puts the lower expert first among equal probabilities
+    # (a zero pad row ties them all); torch.topk promises no order, so sort
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = topw[:, :m.top_k], topi[:, :m.top_k]
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
     E = probs.shape[-1]
     me = probs.mean(0)
@@ -78,6 +87,52 @@ def apply_moe_exact(p: dict, cfg, x: torch.Tensor):
     wmat = wmat.scatter(1, topi, topw)
     o = _swiglu(x2d, p["w_gate"], p["w_up"], p["w_down"])         # (E, T, d)
     out = torch.einsum("etd,te->td", o.float(), wmat).reshape(B, S, d).to(x.dtype)
+    if m.num_shared_experts:
+        sp = p["shared"]
+        out = out + _swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"])
+    return out, aux
+
+
+def _dispatch_chunk(p: dict, m, xc: torch.Tensor):
+    """One chunk (Tc, d) -> (routed-expert output (Tc, d), aux loss), the
+    reference's scatter/gather: assignment a = (t, j) in flat order goes to
+    slot pos_a of expert e_a, pos_a counting the earlier assignments to e_a;
+    slots >= C are dropped (the reference scatters them out of bounds with
+    ``mode="drop"``). Dropped assignments scatter into a trash row past the
+    (E * C) buffer, which no expert reads, and gather zeros back, so the
+    pass needs no host sync and writes into no tensor autograd holds."""
+    Tc, d = xc.shape
+    E, k = m.num_experts, m.top_k
+    C = max(1, int(math.ceil(Tc * k / E * m.capacity_factor)))
+    topw, topi, aux = _router(p, m, xc)
+    flat_e = topi.reshape(-1)                                   # (Tc * k,)
+    onehot = F.one_hot(flat_e, E)
+    pos = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1)
+    keep = pos < C
+    slot = torch.where(keep, flat_e * C + pos, E * C)            # E * C: the trash row
+    src = xc.repeat_interleave(k, dim=0)                        # row t*k + j is token t
+    buf = xc.new_zeros((E * C + 1, d)).index_copy(0, slot, src)[:E * C]
+    out_buf = _swiglu(buf.reshape(E, C, d), p["w_gate"], p["w_up"], p["w_down"])
+    gathered = torch.cat([out_buf.reshape(E * C, d), out_buf.new_zeros((1, d))])[slot]
+    w = (topw.reshape(-1) * keep).float()[:, None]
+    out = (gathered.float() * w).reshape(Tc, k, d).sum(1)
+    return out.to(xc.dtype), aux
+
+
+def apply_moe(p: dict, cfg, x: torch.Tensor):
+    """x (B, S, d) -> (out, aux loss): the capacity MoE over chunks of
+    ``dispatch_chunk`` tokens (the last zero-padded), aux the mean of the
+    chunks' (the pad rows' routing included), and the shared experts added
+    to every token outside the chunks, as the reference does."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    chunk = min(m.dispatch_chunk, T)
+    n = -(-T // chunk)
+    xs = F.pad(x.reshape(T, d), (0, 0, 0, n * chunk - T))
+    outs, auxs = zip(*(_dispatch_chunk(p, m, xc) for xc in xs.split(chunk)))
+    out = torch.cat(outs)[:T].reshape(B, S, d)
+    aux = torch.stack(auxs).mean()
     if m.num_shared_experts:
         sp = p["shared"]
         out = out + _swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"])

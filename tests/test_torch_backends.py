@@ -13,6 +13,7 @@ scan on the KB grid of tests/test_quantized.py.
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.retrieval.backends import FlatBackend as RefFlat
 from repro.retrieval.backends import QuantizedFlatBackend as RefQuantFlat
@@ -25,6 +26,9 @@ from repro_torch.retrieval.backends import (BACKENDS, FlatBackend,
                                             quantize_kb)
 from repro_torch.retrieval.kb import DenseKB
 from repro_torch.retrieval.retrievers import ExactDenseRetriever
+
+# six xdist workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
 
 
 def _grid(rng, n, d):

@@ -16,6 +16,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import RaLMConfig as RefRaLMConfig
 from repro.launch.serve import build_stack as ref_build_stack
@@ -29,6 +30,9 @@ from repro_torch.models.convert import params_from_reference
 from repro_torch.serving.continuous import (ContinuousFleetServer, Request,
                                             as_requests, percentile)
 from repro_torch.training.data import make_queries
+
+# six xdist workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
 
 N_DOCS = 1200
 BUDGETS = [16, 6, 11, 16, 4]

@@ -10,6 +10,7 @@ the port's state updates build new tensors, so no snapshot is aliased.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config, reduced
 from repro.models.model import Model as RefModel
@@ -21,6 +22,9 @@ from repro_torch.models.convert import params_from_reference
 from repro_torch.models.model import Model
 from repro_torch.serving.batched import BatchedServeEngine
 from repro_torch.serving.engine import ServeEngine
+
+# six xdist workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
 
 W = 80      # prompt 40 + doc 30 = 70: every run below wraps the ring
 

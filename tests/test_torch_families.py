@@ -48,6 +48,9 @@ from repro_torch.serving.batched import BatchedServeEngine
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.training.data import make_queries
 
+# six xdist workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 CONFIGS = ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b", "xlstm-350m", "jamba-v0.1-52b",
            "paligemma-3b", "whisper-base"]

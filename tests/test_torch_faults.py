@@ -16,6 +16,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import RaLMConfig as RefRaLMConfig
 from repro.launch.serve import build_stack as ref_build_stack
@@ -28,6 +29,9 @@ from repro_torch.models.convert import params_from_reference
 from repro_torch.retrieval import faults
 from repro_torch.serving.continuous import as_requests
 from repro_torch.training.data import make_queries
+
+# six xdist workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
 
 N_DOCS = 1200
 LEDGER = ("kb_errors", "kb_timeouts", "kb_failures", "seed_failures",

@@ -24,6 +24,9 @@ from repro_torch.retrieval.backends import (FlatBackend, QuantizedFlatBackend,
                                             TorchKernelBackend,
                                             TorchQuantizedKernelBackend, quantize_kb)
 
+# six xdist workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.gpu
 
 
@@ -691,3 +694,84 @@ def test_whisper_fleet_on_cuda_matches_ralmseq(cuda):
         fr = fleet.serve(prompts)
     assert [r.tokens for r in fr.results] == want
     assert DT.launches - calls == fr.kb_calls == fr.rounds + 1
+
+
+# ---------------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------------
+def _train_inputs(arch, device, seed=0):
+    """A reduced config's parameters (drawn on the CPU from ``seed``) and one
+    SyntheticLM batch with zero frames or patches, on ``device``."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import add_extra
+    from repro_torch.models.model import Model
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.trainer import to_device
+    cfg = reduced(get_config(arch))
+    params = Model(cfg).init(torch.Generator().manual_seed(seed))
+    batch = add_extra(cfg, SyntheticLM(cfg.vocab_size, 32, 4).batch(1))
+    return (cfg, tree_map(lambda t: t.to(device), params), to_device(batch, device))
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2-moe-a2.7b", "xlstm-350m",
+                                  "paligemma-3b", "whisper-base"])
+def test_train_step_on_cuda_matches_cpu(cuda, arch):
+    """One train step (the differentiable route, the capacity MoE) from the
+    same parameters and batch on the card and on the CPU: loss, aux and grad
+    norm within rtol = atol = 1e-4, the updated parameters within 2e-5 where
+    the step's first moment is at least 1e-6 in magnitude (below it Adam's
+    normalised step turns rounding into up to 2 lr: tests/test_torch_training.py)."""
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import AdamWConfig, init_adamw, tree_leaves
+    from repro_torch.training.trainer import make_train_step
+    results = []
+    for dev in (torch.device("cpu"), cuda):
+        cfg, params, batch = _train_inputs(arch, dev)
+        opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+        p, st, m = make_train_step(Model(cfg), opt)(params, init_adamw(params), batch)
+        results.append((m, tree_leaves(p), tree_leaves(st.mu)))
+    (m0, p0, mu0), (m1, p1, mu1) = results
+    for k in ("loss", "aux", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(m1[k]), float(m0[k]), rtol=1e-4, atol=1e-4)
+    lr = float(m0["lr"])
+    for a, b, mu in zip(p0, p1, mu0):
+        err = (b.cpu() - a).abs()
+        noisy = mu.abs() < 1e-6
+        assert float(torch.where(noisy, 0.0, err).max()) <= 2e-5
+        assert float(err.max()) <= 2 * lr
+
+
+def test_eval_loss_through_b3_matches_the_differentiable_route(cuda):
+    """The eval step (B3 on the card, under no_grad) against the training
+    loss on the differentiable route, within 1e-5 relative; B3 launched."""
+    from repro_torch.models.model import Model
+    from repro_torch.training.trainer import make_eval_step, make_loss_fn
+    cfg, params, batch = _train_inputs("paligemma-3b", cuda)
+    model = Model(cfg)
+    before = PA.launches
+    got = make_eval_step(model)(params, batch)
+    assert PA.launches - before == cfg.num_layers
+    with torch.no_grad():
+        want, parts = make_loss_fn(model)(params, batch)
+    np.testing.assert_allclose(float(got["total"]), float(want), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(float(got["loss"]), float(parts["loss"]), rtol=1e-5, atol=0)
+
+
+def test_attention_kernels_refuse_inputs_that_require_grad(cuda):
+    """B3 and B2 have no backward: on CUDA inputs that require grad, under
+    grad mode, both wrappers raise before launching; under no_grad they run."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((1, 16, 4, 64), generator=g, device=cuda).requires_grad_()
+    k = torch.randn((1, 16, 4, 64), generator=g, device=cuda)
+    lens = torch.full((1,), 16, dtype=torch.int32, device=cuda)
+    before = (PA.launches, DA.launches)
+    with pytest.raises(RuntimeError, match="no backward"):
+        PA.prefill_attention(q, k, k)
+    with pytest.raises(RuntimeError, match="no backward"):
+        DA.decode_attention(q[:, 0], k, k, lens)
+    assert (PA.launches, DA.launches) == before
+    with torch.no_grad():
+        PA.prefill_attention(q, k, k)
+        DA.decode_attention(q[:, 0].contiguous(), k, k, lens)
+    assert (PA.launches, DA.launches) == (before[0] + 1, before[1] + 1)

@@ -35,6 +35,9 @@ from repro_torch.kernels import gathered_topk as GT
 from repro_torch.kernels import prefill_attention as PA
 from repro_torch.kernels import quant_topk as QT
 
+# six xdist workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 
 def _grid(rng, n, d):
     return rng.integers(-2, 3, size=(n, d)).astype(np.float32) / 2

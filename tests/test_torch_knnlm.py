@@ -16,6 +16,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import RaLMConfig as RefRaLMConfig
 from repro.core.knnlm import knn_interpolate as ref_knn_interpolate
@@ -33,6 +34,9 @@ from repro_torch.retrieval.kb import build_knn_datastore
 from repro_torch.retrieval.retrievers import ExactDenseRetriever, IVFRetriever
 from repro_torch.serving.continuous import as_requests
 from repro_torch.serving.workload import KNNLMWorkload
+
+# six xdist workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
 
 N_DOCS, ENTRIES, MAX_NEW = 300, 6000, 16
 

@@ -20,6 +20,9 @@ from repro_torch.models import layers as TL
 from repro_torch.models.convert import params_from_reference
 from repro_torch.models.model import Model
 
+# six xdist workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

@@ -36,6 +36,9 @@ from repro_torch.retrieval.backends import TorchQuantizedKernelBackend
 from repro_torch.retrieval.retrievers import BM25Retriever, IVFRetriever
 from repro_torch.training.data import make_queries
 
+# six xdist workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 N_DOCS, MAX_NEW = 1500, 16
 
@@ -272,7 +275,10 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
         "assert len(mods) >= 20 and not bad, bad\n"
         "assert {'repro_torch.core.knnlm', 'repro_torch.serving.continuous', "
         "'repro_torch.retrieval.faults', 'repro_torch.models.moe', "
-        "'repro_torch.models.ssm', 'repro_torch.retrieval.sharded'} <= set(mods), mods\n")
+        "'repro_torch.models.ssm', 'repro_torch.retrieval.sharded', "
+        "'repro_torch.training.optimizer', 'repro_torch.training.trainer', "
+        "'repro_torch.training.checkpoint', 'repro_torch.launch.train'} "
+        "<= set(mods), mods\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -37,6 +37,9 @@ from repro_torch.retrieval.backends import (QuantizedShardedBackend, ShardedBack
                                             TorchQuantizedKernelBackend, make_backend)
 from repro_torch.training.data import make_queries
 
+# six xdist workers share the host's cores: one torch thread each
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 BACKEND_PAIRS = {"sharded": (RefSharded, ShardedBackend, TorchKernelBackend),
                  "int8-sharded": (RefQuantSharded, QuantizedShardedBackend,
