@@ -85,8 +85,22 @@
    step against the 1-microbatch step, and a checkpoint saved and restored
    byte for byte. The train steps launch no kernel; the eval pass and the
    last_only forward launch B3 (counted with the serving paths' launches);
-6. one JSON line with every kernel's numbers, the script's total seconds,
-   the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+6. the dry-run group (after phase 5, before the engine checks): the
+   1 x 1-mesh dry-run of llama3.2-1b x long_500k (fp32) gives the
+   arguments' bytes, which must be within 1% of the allocator's delta for
+   the same params (as published, seed 0 on the card), stacked decode state
+   (B = 1, W = 16,384) and token; 8 greedy steps of ``decode_step_stacked``
+   from pos 524,287 (every row's cache_len W) against ``decode_step`` on
+   the same state (logits within 1e-5, tokens identical, B2 launched once
+   a layer and step on each), with each path's ms a step (CUDA events) and
+   peak memory; ``lower_sharded_retrieval(4)``'s search over 8 queries
+   (1,048,576 x 256, k = 20) byte-equal to the unsharded B1, one launch a
+   shard; then B2 at that shape (B 1, H 32 / KV 8, hd 64, W 16,384: 256
+   chunks a row) against its plain version and SDPA, timed as in phase 3.
+   The decode and search launches count with the serving paths';
+7. one JSON line with phase 6's numbers and one with every kernel's, the
+   script's total seconds, the nvidia-smi line, and last ``{"ok": true,
+   "device": {...}}``.
 
 Any failed phase raises, so the exit code is not 0. Without a CUDA device it
 exits with code 2 before printing any result.
@@ -1354,6 +1368,7 @@ def serve_family(arch: str, want: tuple, base, prompts, dev) -> dict:
     one B=1 re-prefill at S = 144 (a passage, a prompt and 48 generated
     tokens) timed with CUDA events, with the encoder's share apart."""
     from repro_torch.launch.serve import build_stack
+    from repro_torch.tree import tree_leaves
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     fam = build_stack("edr", arch=arch, full_width=True, backend="kernel", n_docs=64,
@@ -1365,7 +1380,7 @@ def serve_family(arch: str, want: tuple, base, prompts, dev) -> dict:
     cfg = fam.cfg
     check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
            cfg.vocab_size) == want, f"{arch} is not full width: {cfg}")
-    n_params = sum(t.numel() for t in _leaves(fam.params))
+    n_params = sum(t.numel() for t in tree_leaves(fam.params))
     kinds = cfg.layer_kinds()
     print(f"{arch} stack: family {cfg.family}, {cfg.num_layers} layers "
           f"({', '.join(f'{kinds.count(k)} {k}' for k in dict.fromkeys(kinds))}), d_model "
@@ -1405,14 +1420,6 @@ def serve_family(arch: str, want: tuple, base, prompts, dev) -> dict:
     return counts
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
-
-
 # ---------------------------------------------------------------------------------
 # phase 5: training
 # ---------------------------------------------------------------------------------
@@ -1431,7 +1438,7 @@ def params_close(a, b, mu, lr: float, what: str) -> float:
     below it (there Adam's normalised step turns rounding into a step of up
     to lr either way: tests/test_torch_training.py). -> the largest
     difference over the first kind."""
-    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.tree import tree_leaves
     worst = 0.0
     for x, y, m in zip(tree_leaves(a), tree_leaves(b), tree_leaves(mu)):
         err = (x.to(y.device) - y).abs()
@@ -1454,8 +1461,9 @@ def check_train_reduced(dev) -> None:
     from repro_torch.launch.train import add_extra
     from repro_torch.models.model import Model
     from repro_torch.training.data import SyntheticLM
-    from repro_torch.training.optimizer import AdamWConfig, init_adamw, tree_map
+    from repro_torch.training.optimizer import AdamWConfig, init_adamw
     from repro_torch.training.trainer import make_train_step, to_device
+    from repro_torch.tree import tree_map
     cpu = torch.device("cpu")
     for arch in TRAIN_REDUCED:
         cfg = reduced(get_config(arch))
@@ -1513,10 +1521,10 @@ def train_full(dev) -> dict:
     from repro_torch.models.layers import plain_attention
     from repro_torch.training.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.training.data import SyntheticLM
-    from repro_torch.training.optimizer import (AdamWConfig, adamw_update, decay_mask,
-                                                tree_leaves)
+    from repro_torch.training.optimizer import AdamWConfig, adamw_update, decay_mask
     from repro_torch.training.trainer import (make_eval_step, make_loss_fn,
                                               make_train_step, to_device, value_and_grad)
+    from repro_torch.tree import tree_leaves
     cfg = get_config(TRAIN_ARCH)
     check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
            cfg.vocab_size) == TRAIN_WANT, f"{TRAIN_ARCH} is not full width: {cfg}")
@@ -1624,11 +1632,164 @@ def train_full(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------------
+# phase 6: the dry-run group on the card
+# ---------------------------------------------------------------------------------
+DRY_ARCH, DRY_SHAPE = "llama3.2-1b", "long_500k"
+DRY_WANT = (16, 2048, 32, 8, 64, 128256, True)  # layers, d_model, heads, KV, hd, vocab, tied
+DRY_STEPS = 8
+DRY_POS = 524_287               # long_500k's last position: every row's cache_len is W
+DRY_TOL = 1e-5                  # stacked against flat logits, max abs
+
+
+def _decode_run(step, params, state, token, label: str):
+    """DRY_STEPS greedy steps of ``step`` after one untimed step from the
+    same state (warm-up, outside the counts) -> (logits of each step,
+    tokens, ms of each step (CUDA events), peak device memory GiB, launch
+    counts)."""
+    with torch.no_grad():
+        step(params, state, token, DRY_POS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    logits, toks, ms = [], [], []
+    with torch.no_grad():
+        for i in range(DRY_STEPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out, state = step(params, state, token, DRY_POS + i)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+            token = out.argmax(-1).to(torch.int32)
+            logits.append(out)
+            toks.append(int(token[0]))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label}: {DRY_STEPS} steps at pos {DRY_POS}.., {statistics.median(ms):.3f} ms a "
+          f"step (median; first {ms[0]:.3f}; CUDA events), peak device memory {peak:.2f} GiB, "
+          f"B2 launches {counts['decode_attention']}")
+    return logits, toks, ms, peak, counts
+
+
+def check_dryrun_group(dev, report: dict) -> dict:
+    """Phase 6: ``decode_step_stacked`` at long_500k's shape on full-width
+    llama3.2-1b (B = 1, W = 16,384) against ``decode_step`` on the same
+    state; the 1 x 1-mesh dry-run's argument bytes against the allocator;
+    ``lower_sharded_retrieval``'s 4-shard search against the unsharded B1;
+    then B2 at this shape against its plain version and SDPA (outside the
+    path's counts). -> the path's launch counts."""
+    from repro_torch.configs import LONG_CONTEXT_WINDOW, get_config
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels.dense_topk import dense_topk, dense_topk_plain
+    from repro_torch.launch.dryrun import dryrun_pair
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.retrieval.sharded import lower_sharded_retrieval, sharded_dense_topk
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(DRY_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+           cfg.vocab_size, cfg.tie_embeddings) == DRY_WANT, f"{DRY_ARCH} is not as published")
+    W = LONG_CONTEXT_WINDOW
+    t0 = time.perf_counter()
+    rec = dryrun_pair(DRY_ARCH, DRY_SHAPE, mesh=make_local_mesh(dev), dtype=torch.float32,
+                      verbose=False)
+    check(rec["ok"], f"dry-run {DRY_ARCH} x {DRY_SHAPE} on the 1x1 mesh: {rec['error']}")
+    want = rec["memory"]["argument_bytes"]
+    model = build_model(cfg)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    state = model.init_decode_state_stacked(1, W, device=dev)
+    token = torch.randint(cfg.vocab_size, (1,), generator=gen, device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    got = torch.cuda.memory_allocated(dev) - before
+    rel = abs(got - want) / want
+    check(rel <= 0.01, f"dry-run argument bytes {want} vs allocated {got}")
+    print(f"dry-run {DRY_ARCH} x {DRY_SHAPE} on the 1x1 mesh (fp32): argument bytes {want} "
+          f"({want / 2**30:.3f} GiB), the allocator's delta for the same params, stacked "
+          f"state and token {got} (rel. difference {rel:.2e}); flops {rec['flops']:.4g} "
+          f"(global); planned in {rec['seconds']:.2f} s")
+    with torch.no_grad():
+        for leaf in tree_leaves(state):
+            leaf.normal_(generator=gen)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"{DRY_ARCH}: {n_params / 1e9:.3f}B params fp32; stacked k and v "
+          f"{tuple(state['stages'][0]['k'].shape)} each from seed 0")
+
+    # the path: both decodes over the same state, and the sharded search
+    s_logits, s_toks, s_ms, s_peak, s_counts = _decode_run(
+        model.decode_step_stacked, params, state, token, "decode_step_stacked")
+    f_logits, f_toks, f_ms, f_peak, f_counts = _decode_run(
+        model.decode_step, params, model.unstack_decode_state(state), token, "decode_step (flat)")
+    err = max((a - b).abs().max().item() for a, b in zip(s_logits, f_logits))
+    check(err <= DRY_TOL, f"stacked vs flat logits: max abs {err}")
+    check(s_toks == f_toks, f"stacked tokens {s_toks} != flat {f_toks}")
+    for label, c in (("stacked", s_counts), ("flat", f_counts)):
+        check(c["decode_attention"] == cfg.num_layers * DRY_STEPS,
+              f"{label}: B2 launched {c['decode_attention']} times")
+    print(f"stacked == flat over {DRY_STEPS} greedy steps: tokens {s_toks}, max |dlogit| "
+          f"{err:.3e}")
+    del s_logits, f_logits, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    plan = lower_sharded_retrieval(4, device=dev)
+    N, d, B, k = plan["bounds"][-1][1], plan["d"], plan["batch"], plan["k"]
+    kb = unit_rows(gen, N, d, dev)
+    q = unit_rows(gen, B, d, dev)
+    check(sum(plan["shard_bytes"]) == kb.numel() * 4, "shard bytes")
+    shards = [kb[lo:hi] for lo, hi in plan["bounds"]]
+    reset_counts()
+    s_sh, i_sh = sharded_dense_topk(q, shards, k, n_total=N)
+    torch.cuda.synchronize()
+    sh_counts = read_counts()
+    check(sh_counts["dense_topk"] == 4, f"4-shard search: {sh_counts['dense_topk']} launches")
+    s_one, i_one = dense_topk(q, kb, k)
+    check(torch.equal(s_sh, s_one) and torch.equal(i_sh, i_one.long()),
+          "4-shard search differs from the unsharded B1")
+    # B1 at this d and B against its plain version, as phase 3 holds it
+    s_p, i_p = dense_topk_plain(q, kb, k + 1)
+    b1_err, gap = compare_topk(f"B1 B={B} N={N} d={d} k={k}", s_one, i_one, s_p, i_p, k)
+    report["dense_topk@lower_sharded"] = dict(
+        max_abs_err=b1_err, rows_with_clear_gap=int(gap.sum()),
+        shape=f"B={B} N={N} d={d} k={k}, 4 shards of {plan['shard_n']}")
+    print(f"lower_sharded_retrieval(4): shard_n {plan['shard_n']}, k_local "
+          f"{plan['k_local']}, {plan['shard_bytes'][0] / 2**20:.0f} MiB a shard on "
+          f"{plan['devices'][0]}; one search over {B} queries (N = {N}, d = {d}, k = {k}) "
+          f"== the unsharded B1 byte for byte, 1 launch a shard; unsharded B1 against "
+          f"its plain version: max |dscore| {b1_err:.2e}, rows with a clear k-th gap "
+          f"{int(gap.sum())}/{B}")
+    del kb, shards
+    counts = {n: s_counts[n] + f_counts[n] + sh_counts[n] for n in s_counts}
+
+    # B2 at this shape, outside the path's counts
+    saved = read_counts()
+    q, kc, vc = decode_inputs(gen, 1, W, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, dev)
+    lens = torch.tensor([W], dtype=torch.int32, device=dev)
+    r = time_decode(DA, q, kc, vc, lens, gen)
+    need = cfg.num_heads * -(-W // DA.CHUNK) * (cfg.head_dim + 2)
+    check(DA._scratch[dev.index][5] >= need > DA.MIN_SCRATCH,
+          f"B2 partials scratch {DA._scratch[dev.index][5]} < {need}")
+    report["decode_attention@long_500k"] = r
+    set_counts(saved)
+    report["phase6"] = dict(
+        argument_bytes=want, allocated_bytes=got, flops=rec["flops"],
+        stacked_ms=s_ms, flat_ms=f_ms, stacked_peak_gib=s_peak, flat_peak_gib=f_peak,
+        max_abs_dlogit=err, tokens=s_toks, plan=plan, seconds=time.perf_counter() - t0)
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def engine_checks(stack, prompts, dev) -> None:
     """Batch variance of the decode step, the cost of functional snapshots,
     and where a decode step and a re-prefill spend their time."""
-    from repro_torch.serving.batched import BatchedServeEngine, _tree_map
+    from repro_torch.serving.batched import BatchedServeEngine
     from repro_torch.serving.engine import ServeEngine
+    from repro_torch.tree import tree_map
 
     # batch variance: one slot of a batched decode step vs the same context alone
     docs = [tuple(stack.docs[i][:64]) for i in range(4)]
@@ -1651,7 +1812,7 @@ def engine_checks(stack, prompts, dev) -> None:
     # the cost of functional snapshots: every decode step copies the bundle
     state, pos = beng._state, beng._pos
     nbytes = sum(t.numel() * t.element_size() for st in state for t in st.values())
-    copy = cuda_ms(lambda: _tree_map(lambda c: c.clone(), state), windows=5, inner=3)
+    copy = cuda_ms(lambda: tree_map(lambda c: c.clone(), state), windows=5, inner=3)
     tok = torch.zeros((4,), dtype=torch.long, device=dev)
     with torch.no_grad():
         step = cuda_ms(lambda: stack.model.decode_step(stack.params, state, tok, pos),
@@ -1850,6 +2011,10 @@ def main(argv) -> int:
     paths["train " + TRAIN_ARCH] = train_full(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 6: the dry-run group, the stacked decode at long_500k's window
+    paths["phase 6 " + DRY_ARCH] = check_dryrun_group(dev, report)
+    gc.collect()
+    torch.cuda.empty_cache()
     counts = {n: sum(c[n] for c in paths.values()) for n in check_counts}
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1888,17 +2053,22 @@ def main(argv) -> int:
             entry["at_datastore"] = report[f"{name}@datastore"]
         if f"{name}@hd256" in report:        # B2 and B3 at paligemma-3b's shapes
             entry["at_hd256"] = report[f"{name}@hd256"]
+        if f"{name}@long_500k" in report:    # B2 at the dry-run's long-context window
+            entry["at_long_500k"] = report[f"{name}@long_500k"]
         if f"{name}@hd512" in report:        # B2 and B3 through the wide-head kernels
             entry["at_hd512"] = report[f"{name}@hd512"]
         if f"{name}@encoder" in report:      # B3 at whisper-base's encoder
             entry["at_encoder"] = report[f"{name}@encoder"]
         if f"{name}@4shards" in report:      # B1 as the sharded backend's per-shard scan
             entry["at_4shards"] = report[f"{name}@4shards"]
+        if f"{name}@lower_sharded" in report:    # B1 at lower_sharded_retrieval's search
+            entry["at_lower_sharded"] = report[f"{name}@lower_sharded"]
         if name in ("gathered_topk", "quant_gathered_topk"):
             # no serving route in either package: its launches are phase 3's
             entry["launches"] = check_counts[name]
             entry["launches_from"] = "phase 3 checks (no serving route in either package)"
         kernels.append(entry)
+    print(json.dumps({"phase6": report["phase6"]}))
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all")
     print(smi)

@@ -2,7 +2,7 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
 (``configs``, ``models``, ``kernels``, ``retrieval``, ``core``, ``serving``,
-``training``, ``launch``) and imports nothing of it. The kernels on the main
+``training``, ``distributed``, ``launch``) and imports nothing of it. The kernels on the main
 path are CUDA C++ for Hopper (``kernels/csrc``), each with a plain PyTorch
 version beside it that runs when the tensors lie on the CPU.
 

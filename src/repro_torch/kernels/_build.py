@@ -112,13 +112,15 @@ def check(rc: int, what: str) -> None:
 
 def on_cpu(what: str, *tensors) -> bool:
     """Dispatch rule shared by every wrapper: True when all inputs lie on the
-    CPU (run the plain version); False when all lie on one CUDA device (launch
-    the kernel). Anything else raises."""
+    CPU (run the plain version), or on the meta device (the plain version
+    computes shapes only: the dry-run's trace, ``launch.dryrun``); False
+    when all lie on one CUDA device (launch the kernel). Anything else
+    raises."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{what}: inputs on several devices {sorted(map(str, devs))}")
     dev = devs.pop()
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return True
     if dev.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {dev}")

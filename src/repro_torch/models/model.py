@@ -4,8 +4,9 @@ Mamba, attention and MoE), VLM (PaliGemma: image patches as a
 bidirectional prefix) and audio (Whisper: an encoder over precomputed frame
 embeddings, and a decoder with cross-attention over its output).
 ``init``, ``encode``, ``forward`` (the full-sequence pass that training
-runs), ``init_decode_state``, ``prefill`` and ``decode_step``;
-``decode_step_stacked`` (the dry-run's) is not ported yet (ROADMAP.md).
+runs), ``init_decode_state``, ``prefill`` and ``decode_step`` (serving's),
+and ``init_decode_state_stacked`` / ``decode_step_stacked`` (the dry-run's
+decode, over a state stacked as the reference stacks its layers).
 
 ``forward`` takes its attention route from the caller: with
 ``differentiable=True`` (the train step) every self-attention, the audio
@@ -34,6 +35,13 @@ KV, hd), the encoder memory's K/V that prefill projects once. Every method
 returns new tensors and never writes into the state it was given, so a
 state held by an engine snapshot stays valid; no decode step writes the
 cross K/V, so a step hands the same tensors on and snapshots share them.
+
+The stacked decode state has the reference's layout: ``{"prefix": tuple of
+layer states, "stages": tuple}``, stage j holding the states of layers
+``n_pre + r * period + j`` (:func:`layer_plan`) stacked along a leading
+``n_rep`` axis when the period repeats more than once. Its parameters stay
+the unstacked ``params["layers"]``. Its MoE layers run the capacity dispatch,
+as the reference's ``decode_step_stacked`` does (``exact_moe=False``).
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.tree import tree_map
 
 # the families whose serving path this module ports: every family of the
 # registry
@@ -261,12 +270,13 @@ class Model:
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
         return x @ w
 
-    def _ffn(self, bp, x):
-        """The block's second half: the dropless MoE (serving's exact form) or
-        the SwiGLU FFN, after its norm; layers with neither pass x through."""
+    def _ffn(self, bp, x, exact: bool = True):
+        """The block's second half: the MoE (the dropless one, serving's exact
+        form, or with ``exact=False`` the capacity dispatch) or the SwiGLU
+        FFN, after its norm; layers with neither pass x through."""
         if "moe" in bp:
-            h, _ = MOE.apply_moe_exact(bp["moe"], self.cfg,
-                                       L.rms_norm(x, bp["norm2"], self.cfg.norm_eps))
+            moe = MOE.apply_moe_exact if exact else MOE.apply_moe
+            h, _ = moe(bp["moe"], self.cfg, L.rms_norm(x, bp["norm2"], self.cfg.norm_eps))
             return x + h
         if "ffn" in bp:
             x = x + L.apply_mlp(bp["ffn"], L.rms_norm(x, bp["norm2"],
@@ -305,40 +315,112 @@ class Model:
     # ---- decode (serving path) --------------------------------------------------------
     def decode_step(self, params, state: list, token: torch.Tensor, pos):
         """token (B,) ints; pos an int shared by the batch, or per-slot (B,)
-        positions. -> (logits (B, V), new state). The ring window is read
-        from the first attention layer's cache (every attention layer has the
-        same one; a model may have none, or start with a recurrent layer);
-        recurrent layers step their state."""
-        cfg = self.cfg
-        x = params["embed"][token.long()][:, None]                 # (B, 1, d)
-        B = x.shape[0]
-        if cfg.rope_theta <= 0:
-            x = x + L.sinusoid_at(L.decode_positions(pos, B, x.device),
-                                  cfg.d_model).to(x.dtype)
-        rope = ring = None
+        positions. -> (logits (B, V), new state). Recurrent layers step
+        their state."""
+        x = self._decode_embed(params, token, pos)
+        shared: dict = {}
         new_state = []
-        for bp, sig, st in zip(params["layers"], signatures(cfg), state):
-            h = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
-            if sig[0] == "attn":
-                if ring is None:
-                    ring = self._ring(st["k"].shape[1], pos, B, x.device)
-                    rope = L.rope_tables(L.decode_positions(pos, B, x.device),
-                                         cfg.head_dim, cfg.rope_theta)
-                write_idx, cache_len = ring
-                h, k_new, v_new = L.apply_self_attention_decode(
-                    bp["mixer"], cfg, h, pos, st["k"], st["v"], cache_len, write_idx,
-                    rope=rope)
-                st = dict(st, k=k_new, v=v_new)
-            else:
-                h, ssm = _RECURRENT[sig[0]].step(bp["mixer"], cfg, h, st["ssm"])
-                st = dict(st, ssm=ssm)
-            x = x + h
-            if "cross_k" in st:        # the step hands the memory K/V on as they are
-                x = self._cross(bp, x, st["cross_k"], st["cross_v"])
-            x = self._ffn(bp, x)
+        for bp, sig, st in zip(params["layers"], signatures(self.cfg), state):
+            x, st = self._decode_block(bp, sig, x, st, pos, shared)
             new_state.append(st)
-        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return self._unembed(params, x)[:, 0], new_state
+        return self._decode_logits(params, x), new_state
+
+    def init_decode_state_stacked(self, batch: int, window: int, device=None,
+                                  dtype=torch.float32) -> dict:
+        """The decode state in the reference's stacked layout (module
+        docstring): a repeated stage's leaves get a leading ``n_rep`` axis,
+        each repeat its own copy of the initial state."""
+        cfg = self.cfg
+        n_pre, period, n_rep = layer_plan(cfg)
+        sigs = signatures(cfg)
+        prefix = tuple(_init_layer_state(cfg, sigs[i], batch, window, device, dtype)
+                       for i in range(n_pre))
+        stages = []
+        for j in range(period if n_rep else 0):
+            one = _init_layer_state(cfg, sigs[n_pre + j], batch, window, device, dtype)
+            if n_rep > 1:
+                one = tree_map(lambda t: t.unsqueeze(0).repeat(
+                    (n_rep,) + (1,) * t.ndim), one)
+            stages.append(one)
+        return {"prefix": prefix, "stages": tuple(stages)}
+
+    def unstack_decode_state(self, state: dict) -> list:
+        """A stacked decode state as the per-layer list ``decode_step``
+        takes: layer ``n_pre + r * period + j`` is ``state["stages"][j][r]``
+        (views of the stacked leaves)."""
+        n_pre, period, n_rep = layer_plan(self.cfg)
+        flat = list(state["prefix"])
+        for r in range(n_rep):
+            for j in range(period):
+                stage = state["stages"][j]
+                flat.append(stage if n_rep == 1 else tree_map(lambda t: t[r], stage))
+        return flat
+
+    def stack_decode_state(self, flat: list) -> dict:
+        """The inverse of :meth:`unstack_decode_state`: each stage's leaves
+        ``torch.stack``ed over the repeats into new tensors."""
+        n_pre, period, n_rep = layer_plan(self.cfg)
+        stages = tuple(flat[n_pre + j] if n_rep == 1 else
+                       tree_map(lambda *xs: torch.stack(xs), *flat[n_pre + j::period])
+                       for j in range(period if n_rep else 0))
+        return {"prefix": tuple(flat[:n_pre]), "stages": stages}
+
+    def decode_step_stacked(self, params, state: dict, token: torch.Tensor, pos):
+        """The reference's ``decode_step_stacked``: one decode step over the
+        stacked state (:meth:`init_decode_state_stacked`), layer by layer
+        over :meth:`unstack_decode_state`'s views, MoE layers through the
+        capacity dispatch. token (B,) ints; pos an int or per-slot (B,)
+        positions. -> (logits (B, V), new stacked state, from
+        :meth:`stack_decode_state`: nothing of ``state`` is written)."""
+        sigs = signatures(self.cfg)
+        x = self._decode_embed(params, token, pos)
+        shared: dict = {}
+        new = []
+        for i, st in enumerate(self.unstack_decode_state(state)):
+            x, st = self._decode_block(params["layers"][i], sigs[i], x, st, pos, shared,
+                                       exact_moe=False)
+            new.append(st)
+        return self._decode_logits(params, x), self.stack_decode_state(new)
+
+    def _decode_embed(self, params, token, pos):
+        """The step's input (B, 1, d): token embeddings, plus sinusoidal
+        positions for a model without rope."""
+        x = params["embed"][token.long()][:, None]
+        if self.cfg.rope_theta <= 0:
+            x = x + L.sinusoid_at(L.decode_positions(pos, x.shape[0], x.device),
+                                  self.cfg.d_model).to(x.dtype)
+        return x
+
+    def _decode_logits(self, params, x):
+        x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        return self._unembed(params, x)[:, 0]
+
+    def _decode_block(self, bp, sig, x, st, pos, shared: dict, exact_moe: bool = True):
+        """One layer of a decode step (the reference's ``_apply_block_decode``)
+        -> (x, the layer's new state). ``shared`` holds the step's ring
+        (write_idx, cache_len) and rope tables, made at its first attention
+        layer from that layer's window (every attention layer has the same
+        one; a model may have none, or start with a recurrent layer)."""
+        cfg = self.cfg
+        h = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
+        if sig[0] == "attn":
+            if not shared:
+                B = x.shape[0]
+                shared["ring"] = self._ring(st["k"].shape[1], pos, B, x.device)
+                shared["rope"] = L.rope_tables(L.decode_positions(pos, B, x.device),
+                                               cfg.head_dim, cfg.rope_theta)
+            write_idx, cache_len = shared["ring"]
+            h, k_new, v_new = L.apply_self_attention_decode(
+                bp["mixer"], cfg, h, pos, st["k"], st["v"], cache_len, write_idx,
+                rope=shared["rope"])
+            st = dict(st, k=k_new, v=v_new)
+        else:
+            h, ssm = _RECURRENT[sig[0]].step(bp["mixer"], cfg, h, st["ssm"])
+            st = dict(st, ssm=ssm)
+        x = x + h
+        if "cross_k" in st:            # the step hands the memory K/V on as they are
+            x = self._cross(bp, x, st["cross_k"], st["cross_v"])
+        return self._ffn(bp, x, exact=exact_moe), st
 
     # ---- prefill ----------------------------------------------------------------------
     def prefill(self, params, tokens: torch.Tensor, *, extra: Optional[dict] = None,

@@ -28,6 +28,10 @@ the lower shard, which is the lower id, because the candidates concatenate
 in shard order and the merge sort is stable. So the sharded result equals
 the unsharded one byte for byte.
 
+:func:`lower_sharded_retrieval` is the reference's dry-run artifact of the
+same search: it builds the scan kernel and returns the plan, running
+nothing.
+
 **Padding.** ``shard_n = ceil(N / S)``: the last shard is short when S does
 not divide N and may be empty (N = 9, S = 4). A shard takes its top
 ``k_local`` (dense: ``min(k, shard_n)``; gathered: ``min(k, C)``, since one
@@ -42,6 +46,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import gathered_topk as GT
 from repro_torch.kernels.dense_topk import NEG, dense_topk
 from repro_torch.kernels.quant_topk import quant_dense_topk
@@ -170,3 +175,23 @@ def sharded_gathered_topk(queries: torch.Tensor, shards: Sequence[torch.Tensor],
             ids = ids.long()
             parts.append((sc, torch.where(ids >= 0, ids + lo, ids)))
     return merge(parts, k_local, queries.device)
+
+
+def lower_sharded_retrieval(n_shards: int, *, n_docs: int = 1_048_576, d: int = 256,
+                            batch: int = 8, k: int = 20, device=None) -> dict:
+    """The sharded batched-verification search, built and planned but not
+    run (the reference lowers and compiles it): on CUDA the B1 scan kernel
+    is built and loaded; the plan says where each shard lives and what it
+    holds -> {"shard_n", "k_local", "bounds" (each shard's
+    ``[lo, hi)`` ids), "devices", "shard_bytes" (each shard's fp32 rows, d
+    padded as the backends pad it), "batch", "k", "d"}."""
+    devices = shard_devices(n_shards, device)
+    if devices[0].type == "cuda":
+        _build.library("dense_topk")
+    bounds = shard_bounds(n_docs, n_shards)
+    shard_n = -(-n_docs // n_shards)
+    d_pad = -(-d // 4) * 4                       # dense_topk.pad_d's fp32 multiple
+    return {"shard_n": shard_n, "k_local": min(k, shard_n),
+            "bounds": bounds, "devices": [str(dv) for dv in devices],
+            "shard_bytes": [(hi - lo) * d_pad * 4 for lo, hi in bounds],
+            "batch": batch, "k": k, "d": d}

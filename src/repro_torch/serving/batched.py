@@ -42,16 +42,7 @@ import torch
 
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import EngineStats, _sync
-
-
-def _tree_map(fn, *trees):
-    """fn over matching leaves of (state list, positions, logits) bundles."""
-    first = trees[0]
-    if isinstance(first, (list, tuple)):
-        return type(first)(_tree_map(fn, *xs) for xs in zip(*trees))
-    if isinstance(first, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
-    return fn(*trees)
+from repro_torch.tree import tree_map
 
 
 def _set_row(cur: torch.Tensor, b: int, row: torch.Tensor) -> torch.Tensor:
@@ -131,7 +122,7 @@ class BatchedServeEngine:
         with torch.no_grad():
             last, state, pos = self.model.prefill(self.params, toks, extra=self.extra,
                                                   window_cache=self.W)
-        self._state = _tree_map(lambda c, r: _set_row(c, slot, r[0]),
+        self._state = tree_map(lambda c, r: _set_row(c, slot, r[0]),
                                 self._state, state)
         self._pos = _set_row(self._pos, slot, pos)
         self._last_logits = _set_row(self._last_logits, slot, last[0])
@@ -206,7 +197,7 @@ class BatchedServeEngine:
 
     def _commit_bundle(self, current, committed, slot_list):
         mask = self._mask(slot_list)
-        return _tree_map(
+        return tree_map(
             lambda n, c: c if n is c else
             torch.where(mask.reshape((-1,) + (1,) * (n.ndim - 1)), n, c),
             current, committed)
@@ -270,5 +261,5 @@ class BatchedServeEngine:
             f"slot {slot}: snapshot is not from this request's lineage"
         self.tokens[slot] = self.tokens[slot][:n]
         self.doc[slot] = doc
-        self._set_bundle(_tree_map(lambda c, o: c if c is o else _set_row(c, slot, o[slot]),
+        self._set_bundle(tree_map(lambda c, o: c if c is o else _set_row(c, slot, o[slot]),
                                    self._bundle(), bundle))

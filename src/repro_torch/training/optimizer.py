@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.models.convert import stacked_leaves
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclass(frozen=True)
@@ -41,36 +42,6 @@ class AdamWState(NamedTuple):
     step: torch.Tensor          # () int32
     mu: dict
     nu: dict
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of a tree of dicts, lists and tuples: dict entries by
-    sorted key (as ``jax.tree`` orders them), so two trees with the same
-    keys line up whatever order their dicts were built in (a restored
-    checkpoint's and a fresh init's)."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
-
-
-def tree_unflatten(like, leaves):
-    """A tree shaped like ``like`` holding ``leaves`` (in ``tree_leaves`` order)."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-    return build(like)
-
-
-def tree_map(fn, tree, *rest):
-    return tree_unflatten(tree, [fn(*xs) for xs in zip(tree_leaves(tree),
-                                                       *map(tree_leaves, rest))])
 
 
 def decay_mask(model_cfg, params: dict) -> dict:

@@ -20,8 +20,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Model, build_model
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState, adamw_update,
-                                            decay_mask, init_adamw, tree_leaves,
-                                            tree_map, tree_unflatten)
+                                            decay_mask, init_adamw)
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def to_device(batch: dict, device) -> dict:

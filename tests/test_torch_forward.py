@@ -42,7 +42,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import moe as TMOE
 from repro_torch.models.convert import _tensors, params_from_reference
 from repro_torch.models.model import Model
-from repro_torch.training.optimizer import tree_leaves
+from repro_torch.tree import tree_leaves
 from repro_torch.training.trainer import make_loss_fn, to_device, value_and_grad
 
 # six xdist workers share the host's cores: one torch thread each

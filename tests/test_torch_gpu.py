@@ -706,7 +706,7 @@ def _train_inputs(arch, device, seed=0):
     from repro_torch.launch.train import add_extra
     from repro_torch.models.model import Model
     from repro_torch.training.data import SyntheticLM
-    from repro_torch.training.optimizer import tree_map
+    from repro_torch.tree import tree_map
     from repro_torch.training.trainer import to_device
     cfg = reduced(get_config(arch))
     params = Model(cfg).init(torch.Generator().manual_seed(seed))
@@ -723,7 +723,8 @@ def test_train_step_on_cuda_matches_cpu(cuda, arch):
     the step's first moment is at least 1e-6 in magnitude (below it Adam's
     normalised step turns rounding into up to 2 lr: tests/test_torch_training.py)."""
     from repro_torch.models.model import Model
-    from repro_torch.training.optimizer import AdamWConfig, init_adamw, tree_leaves
+    from repro_torch.training.optimizer import AdamWConfig, init_adamw
+    from repro_torch.tree import tree_leaves
     from repro_torch.training.trainer import make_train_step
     results = []
     for dev in (torch.device("cpu"), cuda):
@@ -775,3 +776,51 @@ def test_attention_kernels_refuse_inputs_that_require_grad(cuda):
         PA.prefill_attention(q, k, k)
         DA.decode_attention(q[:, 0].contiguous(), k, k, lens)
     assert (PA.launches, DA.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("B,H,KV,lens", [(1, 32, 8, (16384,)), (2, 32, 8, (16384, 9000)),
+                                         (1, 8, 1, (16384,)), (2, 16, 16, (1, 16384))])
+def test_decode_attention_at_the_long_context_window(cuda, B, H, KV, lens):
+    """B2 at long_500k's ring window W = 16,384 (256 chunks of 64 entries a
+    row; llama3.2-1b's 32 / 8 heads at hd 64 first): within 2e-5 of the
+    plain version, and its partials scratch grown to what the call needs
+    (past MIN_SCRATCH at 32 heads)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    W, hd = 16384, 64
+    q = torch.randn((B, H, hd), generator=g, device=cuda)
+    kc = torch.randn((B, W, KV, hd), generator=g, device=cuda)
+    vc = torch.randn((B, W, KV, hd), generator=g, device=cuda)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = DA.decode_attention(q, kc, vc, ln)
+    err = (out - DA.decode_attention_plain(q, kc, vc, ln)).abs().max().item()
+    assert err <= 2e-5, err
+    need = B * H * (W // DA.CHUNK) * (hd + 2)
+    assert DA._scratch[q.device.index][5] >= max(need, DA.MIN_SCRATCH)
+
+
+def test_stacked_decode_matches_flat_at_the_long_context_window(cuda):
+    """decode_step_stacked against decode_step over the same W = 16,384
+    state on the card (llama3.2-1b's family at 4 layers, per-slot positions
+    past the window): logits within 1e-5, one B2 launch per layer and step
+    on each path."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import build_model
+    cfg = reduced(get_config("llama3.2-1b"), layers=4, d_model=256)
+    model = build_model(cfg)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init(g)
+    state = model.init_decode_state_stacked(2, 16384, device=cuda)
+    for t in (t for st in state["stages"] for t in st.values()):
+        t.normal_(generator=g)
+    flat = model.unstack_decode_state(state)
+    tok = torch.tensor([3, 7], device=cuda)
+    pos = torch.tensor([524_287, 524_000], device=cuda)
+    with torch.no_grad():
+        for i in range(4):
+            n0 = DA.launches
+            s_logits, state = model.decode_step_stacked(params, state, tok, pos + i)
+            n1 = DA.launches
+            f_logits, flat = model.decode_step(params, flat, tok, pos + i)
+            assert (n1 - n0, DA.launches - n1) == (cfg.num_layers, cfg.num_layers)
+            assert (s_logits - f_logits).abs().max().item() <= 1e-5
+            tok = f_logits.argmax(-1)

@@ -40,6 +40,7 @@ from repro_torch.models.model import Model
 from repro_torch.training import checkpoint as TCK
 from repro_torch.training import data as TD
 from repro_torch.training import optimizer as TOPT
+from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.training.trainer import make_train_step, to_device
 
 # six xdist workers share the host's cores: one torch thread each
@@ -148,7 +149,7 @@ def test_norm_decay_follows_the_reference_stacking(name, decayed):
     0.9 where the reference stacks it (llama: one period repeated twice)
     and stays 1.0 in kimi's prefix; final_norm never decays."""
     _, tcfg, _, _, params = _pair(name)
-    zeros = TOPT.tree_map(torch.zeros_like, params)
+    zeros = tree_map(torch.zeros_like, params)
     cfg = TOPT.AdamWConfig(lr=1.0, warmup_steps=0, total_steps=1, min_lr_ratio=1.0,
                            weight_decay=0.1)
     new, _, _ = TOPT.adamw_update(cfg, zeros, TOPT.init_adamw(params), params,
@@ -177,7 +178,7 @@ def _step_pair(name, num_microbatches):
 
 def _max_param_diff(a, b):
     return max(float((x - y).abs().max()) for x, y in
-               zip(TOPT.tree_leaves(a), TOPT.tree_leaves(b)))
+               zip(tree_leaves(a), tree_leaves(b)))
 
 
 def test_microbatched_step_equals_full_batch_and_reference():
@@ -277,7 +278,7 @@ def test_port_checkpoint_restores_in_the_reference(name, tmp_path):
         assert a.files == b.files
     assert manifest["n_arrays"] == len(a.files)
     back, opt_back, _ = TCK.restore_checkpoint(str(tmp_path / "port"), 3, tcfg)
-    for x, y in zip(TOPT.tree_leaves((params, opt)), TOPT.tree_leaves((back, opt_back))):
+    for x, y in zip(tree_leaves((params, opt)), tree_leaves((back, opt_back))):
         assert torch.equal(x, y)
 
 
@@ -295,11 +296,11 @@ def test_restored_state_lines_up_with_fresh_parameters(tmp_path):
     TCK.save_checkpoint(str(tmp_path), 1, cfg, params, opt)
     back, opt_back, _ = TCK.restore_checkpoint(str(tmp_path), 1, cfg)
     assert list(params["layers"][0]) != list(back["layers"][0])     # other dict orders
-    for x, y in zip(TOPT.tree_leaves((params, opt)), TOPT.tree_leaves((back, opt_back))):
+    for x, y in zip(tree_leaves((params, opt)), tree_leaves((back, opt_back))):
         assert torch.equal(x, y)
     want, _, _ = step(params, opt, batch)
     got, _, _ = step(params, opt_back, batch)
-    for x, y in zip(TOPT.tree_leaves(want), TOPT.tree_leaves(got)):
+    for x, y in zip(tree_leaves(want), tree_leaves(got)):
         assert torch.equal(x, y)
 
 
