@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --src DIR        # phases 1-3 only, for the src/ tree DIR
+    python3 chip_smoke.py --walls [--src DIR]  # phase 4's EDR kernel path, phase
+                                           # 5's knnlm-247m steps and one MoE
+                                           # family path (two trees compared)
     python3 chip_smoke.py --across-cards   # the sharded backends with a shard on
                                            # every card (more than one card)
 
@@ -97,6 +100,13 @@
    (1,048,576 x 256, k = 20) byte-equal to the unsharded B1, one launch a
    shard; then B2 at that shape (B 1, H 32 / KV 8, hd 64, W 16,384: 256
    chunks a row) against its plain version and SDPA, timed as in phase 3.
+   Then the same stacked step with params, state and token as DTensors on
+   the 1 x 1 CUDA mesh (B2 on each rank's shards through ``local_map``):
+   its logits against the plain stacked step's over the 8 steps (within
+   1e-5), B2 once a layer and step, a collective census that is all zero,
+   and its ms a step (DTensor's host dispatch); and the 1 x 1 record's
+   argument + temp + output bytes within 10% of the allocator's peak over
+   one plain stacked step from the same state, the arguments included.
    The decode and search launches count with the serving paths';
 7. one JSON line with phase 6's numbers and one with every kernel's, the
    script's total seconds, the nvidia-smi line, and last ``{"ok": true,
@@ -1672,10 +1682,44 @@ def _decode_run(step, params, state, token, label: str):
     return logits, toks, ms, peak, counts
 
 
+def _dtensor_decode_run(model, params, state, token, mesh):
+    """The stacked decode step with params, state and token distributed
+    over ``mesh`` by the dry-run's specs: one untimed step under the
+    collective census (outside the counts), then DRY_STEPS greedy steps
+    timed with CUDA events -> (logits of each step, rank 0's local shards;
+    ms of each step; launch counts; the census)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed.sharding import data_specs, param_specs, state_specs
+    from repro_torch.launch.dryrun import StepCensus, collective_census, distribute
+    specs = (param_specs(params, mesh), state_specs(state, mesh, 1, kv_shard="window"),
+             data_specs({"t": token}, mesh)["t"])
+    dparams, dstate, dtoken = distribute((params, state, token), specs, mesh)
+    census = StepCensus((dparams, dstate, dtoken))
+    logits, ms = [], []
+    with torch.no_grad(), implicit_replication():
+        with census:
+            model.decode_step_stacked(dparams, dstate, dtoken, DRY_POS)
+        torch.cuda.synchronize()
+        reset_counts()
+        for i in range(DRY_STEPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out, dstate = model.decode_step_stacked(dparams, dstate, dtoken, DRY_POS + i)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+            dtoken = out.argmax(-1).to(torch.int32)
+            logits.append(out.to_local())
+    return logits, ms, read_counts(), collective_census(census.records)
+
+
 def check_dryrun_group(dev, report: dict) -> dict:
     """Phase 6: ``decode_step_stacked`` at long_500k's shape on full-width
     llama3.2-1b (B = 1, W = 16,384) against ``decode_step`` on the same
     state; the 1 x 1-mesh dry-run's argument bytes against the allocator;
+    the same stacked step as DTensors on the 1 x 1 CUDA mesh against the
+    plain one (its census all zero), and the record's argument + temp +
+    output bytes against the allocator's peak over one plain step;
     ``lower_sharded_retrieval``'s 4-shard search against the unsharded B1;
     then B2 at this shape against its plain version and SDPA (outside the
     path's counts). -> the path's launch counts."""
@@ -1733,6 +1777,43 @@ def check_dryrun_group(dev, report: dict) -> dict:
               f"{label}: B2 launched {c['decode_attention']} times")
     print(f"stacked == flat over {DRY_STEPS} greedy steps: tokens {s_toks}, max |dlogit| "
           f"{err:.3e}")
+
+    # the stacked step as DTensors on the 1 x 1 CUDA mesh: B2 through local_map
+    d_logits, d_ms, d_counts, census = _dtensor_decode_run(model, params, state, token,
+                                                           make_local_mesh(dev))
+    d_err = max((a - b).abs().max().item() for a, b in zip(d_logits, s_logits))
+    check(d_err <= DRY_TOL, f"DTensor vs plain stacked logits: max abs {d_err}")
+    check(d_counts["decode_attention"] == cfg.num_layers * DRY_STEPS,
+          f"DTensor step: B2 launched {d_counts['decode_attention']} times")
+    check(census["total_bytes"] == 0 and all(census[k]["count"] == 0 for k in census
+                                             if k != "total_bytes"),
+          f"DTensor step on the 1 x 1 mesh issued collectives: {census}")
+    print(f"decode_step_stacked as DTensors on the 1x1 {dev} mesh: {DRY_STEPS} steps, "
+          f"{statistics.median(d_ms):.3f} ms a step (median; plain stacked "
+          f"{statistics.median(s_ms):.3f}; the difference is DTensor's host dispatch), "
+          f"max |dlogit| vs plain {d_err:.3e}, B2 launches {d_counts['decode_attention']}, "
+          f"collective bytes {census['total_bytes']}")
+
+    # the record's memory against the allocator over one plain stacked step
+    del d_logits
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        out = model.decode_step_stacked(params, state, token, DRY_POS)
+    torch.cuda.synchronize()
+    peak = got + torch.cuda.max_memory_allocated(dev) - m0
+    del out
+    mem = rec["memory"]
+    planned = mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"]
+    mem_rel = abs(planned - peak) / peak
+    check(mem_rel <= 0.10, f"dry-run argument + temp + output bytes {planned} vs the "
+                           f"allocator's peak {peak}")
+    print(f"dry-run memory (1x1 mesh, meta): argument {mem['argument_bytes']} + temp "
+          f"{mem['temp_bytes']} + output {mem['output_bytes']} = {planned} bytes; the "
+          f"allocator's peak over one plain stacked step, the arguments included, {peak} "
+          f"(rel. difference {mem_rel:.2e})")
     del s_logits, f_logits, params, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -1764,7 +1845,7 @@ def check_dryrun_group(dev, report: dict) -> dict:
           f"its plain version: max |dscore| {b1_err:.2e}, rows with a clear k-th gap "
           f"{int(gap.sum())}/{B}")
     del kb, shards
-    counts = {n: s_counts[n] + f_counts[n] + sh_counts[n] for n in s_counts}
+    counts = {n: s_counts[n] + f_counts[n] + d_counts[n] + sh_counts[n] for n in s_counts}
 
     # B2 at this shape, outside the path's counts
     saved = read_counts()
@@ -1779,7 +1860,9 @@ def check_dryrun_group(dev, report: dict) -> dict:
     report["phase6"] = dict(
         argument_bytes=want, allocated_bytes=got, flops=rec["flops"],
         stacked_ms=s_ms, flat_ms=f_ms, stacked_peak_gib=s_peak, flat_peak_gib=f_peak,
-        max_abs_dlogit=err, tokens=s_toks, plan=plan, seconds=time.perf_counter() - t0)
+        max_abs_dlogit=err, tokens=s_toks, dtensor_ms=d_ms, dtensor_max_abs_dlogit=d_err,
+        dtensor_census=census, record_memory=mem, allocator_peak_bytes=peak,
+        memory_rel_difference=mem_rel, plan=plan, seconds=time.perf_counter() - t0)
     print(f"phase 6: {time.perf_counter() - t0:.1f} s")
     return counts
 
@@ -1867,6 +1950,10 @@ def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--src", help="run phases 1-3 only, with the src/ directory of "
                                       "this or another tree (e.g. an unpacked parent commit)")
+    parser.add_argument("--walls", action="store_true",
+                        help="only the serving walls of phase 4's EDR kernel path and "
+                             "the MoE family path, and phase 5's knnlm-247m step time "
+                             "(with --src: for that tree)")
     parser.add_argument("--across-cards", action="store_true",
                         help="only build and check the sharded backends with their shards "
                              "over every visible card (needs more than one)")
@@ -1903,6 +1990,23 @@ def main(argv) -> int:
         check(torch.cuda.device_count() > 1, "--across-cards needs more than one card")
         check_sharded_across_cards()
         print(f"chip_smoke --across-cards: {time.perf_counter() - T0:.1f} s in all")
+        print(smi)
+        return 0
+
+    if args.walls:
+        stack, _, _ = build_serving(dev)
+        prompts = [(q * 12)[:48] for q in make_queries(stack.docs, 8)]
+        serve_path(stack, prompts, "EDR kernel", ("dense_topk", "decode_attention",
+                                                   "prefill_attention"))
+        stack.params, stack.engine = None, None
+        gc.collect()
+        torch.cuda.empty_cache()
+        arch, want = FAMILY_PATHS[0]
+        serve_family(arch, want, stack, prompts[:FAMILY_PROMPTS], dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_full(dev)
+        print(f"chip_smoke --walls: {time.perf_counter() - T0:.1f} s in all")
         print(smi)
         return 0
 

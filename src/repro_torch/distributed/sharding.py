@@ -78,7 +78,10 @@ def _sanitize(spec, shape, sizes) -> Spec:
 
 
 def batch_axes(mesh) -> tuple:
-    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    """The axes a batch dim is split over: 'pod' and 'data' where ``mesh``
+    (a ``DeviceMesh``, or its axis names) has them."""
+    names = getattr(mesh, "mesh_dim_names", mesh)
+    return tuple(a for a in ("pod", "data") if a in names)
 
 
 _IN_OUT = Spec("data", "model")     # (d_in, d_out)
@@ -203,11 +206,14 @@ def data_specs(batch_dict, mesh, *, batch_over_model: bool = False):
 
 def to_placements(spec, mesh) -> list:
     """A spec -> one DTensor placement per mesh dim: ``Shard(d)`` on each
-    mesh dim that tensor dim d names, ``Replicate()`` on the others. DTensor
-    splits a tensor dim over several mesh dims in mesh order, so a tuple
-    entry must list its axes in that order (data-major, as the reference's
-    ``PartitionSpec`` splits them)."""
+    mesh dim that tensor dim d names, ``Replicate()`` on the others and on
+    every mesh dim of size 1 (a shard over one device is the whole tensor,
+    and DTensor would otherwise move it through one-rank collectives).
+    DTensor splits a tensor dim over several mesh dims in mesh order, so a
+    tuple entry must list its axes in that order (data-major, as the
+    reference's ``PartitionSpec`` splits them)."""
     names = list(mesh.mesh_dim_names)
+    sizes = mesh_sizes(mesh)
     out = [Replicate() for _ in names]
     for d, e in enumerate(spec):
         if e is None:
@@ -217,5 +223,6 @@ def to_placements(spec, mesh) -> list:
         if idx != sorted(idx):
             raise ValueError(f"spec entry {e!r} is not in the mesh's axis order {names}")
         for i in idx:
-            out[i] = Shard(d)
+            if sizes[names[i]] > 1:
+                out[i] = Shard(d)
     return out

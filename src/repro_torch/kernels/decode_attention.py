@@ -14,7 +14,10 @@ reference's is. Every caller on the serving path has cache_len >= 1.
 up to :data:`MAX_HD` is zero-padded to the next of them, with the real hd's
 softmax scale; above it a separate wide-head kernel takes hd zero-padded to
 a multiple of 4), and :func:`decode_attention_plain` on CPU tensors.
-``launches`` counts kernel launches. The kernel has no backward: the wrapper
+``launches`` counts kernel launches. DTensor inputs go through
+``mesh_ops.on_mesh``: the plain version op by op on a mesh of meta or CPU
+shards, the kernel on each rank's CUDA shards where :data:`MESH_RULES`
+allow. The kernel has no backward: the wrapper
 raises on inputs that require grad under grad mode, on either device. The kernel splits each slot's cache into chunks of
 :data:`CHUNK` entries. The wrapper keeps, per device, the scratch for the
 chunks' partials and a zeroed ticket buffer, which each launch leaves
@@ -29,7 +32,9 @@ import ctypes
 import math
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
+from repro_torch.distributed import mesh_ops
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)   # the kernel's instances (csrc/decode_attention.cu)
@@ -37,20 +42,29 @@ MAX_HD = HEAD_DIMS[-1]  # above it: the wide-head kernel (csrc/wide_attention.cu
 CHUNK = 64             # cache entries per CTA (kChunk in csrc/decode_attention.cu)
 MIN_SCRATCH = 1 << 18  # ticket ints and partial floats that a device's first scratch holds
 launches = 0
+# on one mesh dim, the placements of (q, k_cache, v_cache, cache_len) under
+# which each rank attends its shards alone, and the output's: all whole, the
+# batch split, or the heads split (query heads with their KV heads)
+MESH_RULES = (((Replicate(),) * 4, Replicate()),
+              ((Shard(0),) * 4, Shard(0)),
+              ((Shard(1), Shard(2), Shard(2), Replicate()), Shard(1)))
 _scratch: dict = {}    # device index -> (tickets, partials, their pointers, their sizes)
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len):
-    """The reference's one-shot softmax over the valid ring entries."""
+    """The reference's one-shot softmax over the valid ring entries. On a
+    mesh where the query heads are split finer than the KV heads, the one
+    query row's heads are gathered first (``mesh_ops.whole_heads``)."""
     B, H, hd = q.shape
     W, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
+    q = mesh_ops.whole_heads(q, KV, 1)
     qg = q.float().reshape(B, KV, G, hd)
     s = torch.einsum("bkgh,btkh->bkgt", qg, k_cache.float()) / math.sqrt(hd)
     valid = (torch.arange(W, device=q.device)[None, :]
              < cache_len.reshape(-1, 1))                    # (B, W)
     s = torch.where(valid[:, None, None, :], s, torch.tensor(-1e30, device=q.device))
-    p = torch.softmax(s, dim=-1)
+    p = mesh_ops.softmax_last(s)
     out = torch.einsum("bkgt,btkh->bkgh", p, v_cache.float())
     return out.reshape(B, H, hd).to(q.dtype)
 
@@ -98,19 +112,30 @@ def _scratch_for(device, n_tickets: int, n_partials: int):
 def decode_attention(q, k_cache, v_cache, cache_len):
     """q (B, H, hd); k/v cache (B, W, KV, hd); cache_len (B,) int32
     -> (B, H, hd)."""
-    global launches
     B, H, hd = q.shape
     if k_cache.shape != v_cache.shape or k_cache.ndim != 4 \
             or k_cache.shape[0] != B or k_cache.shape[3] != hd:
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
-    W, KV = k_cache.shape[1], k_cache.shape[2]
+    KV = k_cache.shape[2]
     if H % KV or cache_len.shape != (B,):
         raise ValueError(f"decode_attention: H={H} KV={KV} cache_len "
                          f"{tuple(cache_len.shape)}")
     _build.refuse_grad("decode_attention", q, k_cache, v_cache)
-    if _build.on_cpu("decode_attention", q, k_cache, v_cache, cache_len):
-        return decode_attention_plain(q, k_cache, v_cache, cache_len)
+    args = (q, k_cache, v_cache, cache_len)
+    if mesh_ops.is_distributed(*args):
+        return mesh_ops.on_mesh("decode_attention", _kernel, decode_attention_plain, args,
+                                MESH_RULES, head_dims=(1, 2))
+    if _build.on_cpu("decode_attention", *args):
+        return decode_attention_plain(*args)
+    return _kernel(*args)
+
+
+def _kernel(q, k_cache, v_cache, cache_len):
+    """The CUDA launch on one device's tensors."""
+    global launches
+    B, H, hd = q.shape
+    W, KV = k_cache.shape[1], k_cache.shape[2]
     n = instance_hd(hd)
     _build.check_kernel_inputs("decode_attention", torch.float32,
                                q, k_cache, v_cache)

@@ -11,7 +11,9 @@ optional sliding ``window``, GQA.
 hd up to 256 zero-padded to the next of them with the real hd's softmax
 scale; above 256 a separate wide-head kernel takes hd zero-padded to a
 multiple of 4), and :func:`prefill_attention_plain` on CPU tensors.
-``launches`` counts kernel launches. The kernel has no backward: the wrapper
+``launches`` counts kernel launches. DTensor inputs go through
+``mesh_ops.on_mesh`` as B2's do (:data:`MESH_RULES`). The kernel has no
+backward: the wrapper
 raises on inputs that require grad under grad mode, on either device
 (training attends through ``models.layers.apply_self_attention``).
 """
@@ -22,10 +24,19 @@ import math
 
 import torch
 
+from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch.distributed import mesh_ops
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import instance_hd, pad_hd
 
 launches = 0
+# on one mesh dim, the placements of (q, k, v) under which each rank attends
+# its shards alone, and the output's: all whole, the batch split, or the
+# heads split (query heads with their KV heads)
+MESH_RULES = (((Replicate(),) * 3, Replicate()),
+              ((Shard(0),) * 3, Shard(0)),
+              ((Shard(2),) * 3, Shard(2)))
 
 
 def allowed_mask(S: int, T: int, *, causal: bool, window: int, prefix_len: int,
@@ -46,7 +57,9 @@ def allowed_mask(S: int, T: int, *, causal: bool, window: int, prefix_len: int,
 
 
 def prefill_attention_plain(q, k, v, *, causal=True, window=0, prefix_len=0):
-    """The reference's plain_attention: the full (S, T) score matrix."""
+    """The reference's plain_attention: the full (S, T) score matrix (k, v
+    through ``mesh_ops.kv_for_mesh``)."""
+    k, v = mesh_ops.kv_for_mesh(q, k, v)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -56,7 +69,7 @@ def prefill_attention_plain(q, k, v, *, causal=True, window=0, prefix_len=0):
                        prefix_len=prefix_len, device=q.device)
     s = torch.where(msk[None, :, None, None, :], s,
                     torch.tensor(-1e30, device=q.device))
-    p = torch.softmax(s, dim=-1)
+    p = mesh_ops.softmax_last(s)
     out = torch.einsum("bqkgt,btkh->bqkgh", p, v.float())
     return out.reshape(B, S, H, hd).to(q.dtype)
 
@@ -78,17 +91,28 @@ def _launch_fn():
 def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0,
                       prefix_len: int = 0):
     """q (B, S, H, hd); k/v (B, S, KV, hd) -> (B, S, H, hd)."""
-    global launches
     B, S, H, hd = q.shape
     if k.shape != v.shape or k.ndim != 4 or k.shape[:2] != (B, S) \
             or k.shape[3] != hd or H % k.shape[2]:
         raise ValueError(f"prefill_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    KV = k.shape[2]
     _build.refuse_grad("prefill_attention", q, k, v)
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
+    if mesh_ops.is_distributed(q, k, v):
+        return mesh_ops.on_mesh("prefill_attention",
+                                lambda *a: _kernel(*a, **kw),
+                                lambda *a: prefill_attention_plain(*a, **kw), (q, k, v),
+                                MESH_RULES, head_dims=(2, 2))
     if _build.on_cpu("prefill_attention", q, k, v):
-        return prefill_attention_plain(q, k, v, causal=causal, window=window,
-                                       prefix_len=prefix_len)
+        return prefill_attention_plain(q, k, v, **kw)
+    return _kernel(q, k, v, **kw)
+
+
+def _kernel(q, k, v, *, causal: bool, window: int, prefix_len: int):
+    """The CUDA launch on one device's tensors."""
+    global launches
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
     n = instance_hd(hd)
     _build.check_kernel_inputs("prefill_attention", torch.float32, q, k, v)
     q, k, v = (pad_hd(t, n) for t in (q, k, v))

@@ -16,6 +16,15 @@ attention that autograd differentiates on either device. The caller picks the
 route (``Model.forward(differentiable=...)``); a kernel wrapper handed a
 tensor that requires grad raises. Cross-attention is plain PyTorch on both,
 as the reference's is plain jnp outside any Pallas kernel.
+
+Activation constraints: ``shard`` (``distributed.mesh_ops``) is the
+reference's ``shard``, at the reference's call sites here, in ``model`` and
+in ``moe``. On a DTensor it redistributes the activation to a spec's
+placements on the tensor's own mesh, so a step run as DTensors
+(``launch.dryrun``) moves its activations where the reference's partitioner
+is told to; on a plain tensor it is the identity, as is every other
+``mesh_ops`` helper, so serving, training and every single-device run are
+untouched.
 """
 from __future__ import annotations
 
@@ -23,10 +32,12 @@ import math
 
 import torch
 import torch.nn.functional as F
-
+from repro_torch.distributed.mesh_ops import (BATCH, kv_for_mesh, merge_dims, mesh_active,
+                                              shard, split_dim)
+# the reference's layers.batch_axes
+from repro_torch.distributed.sharding import Spec, batch_axes  # noqa: F401
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.prefill_attention import prefill_attention
-
 
 def normal(gen: torch.Generator, shape, scale: float, dtype=torch.float32) -> torch.Tensor:
     """Normal draws times ``scale`` on the generator's device: the reference's
@@ -120,13 +131,11 @@ def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x W_gate) * x W_up) W_down."""
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
-    h = F.silu(g.float()).to(x.dtype) * u
+    h = shard(F.silu(g.float()).to(x.dtype) * u, Spec(BATCH, None, "model"))
     return h @ p["w_down"]
 
 
 def _project_qkv(p: dict, cfg, xq: torch.Tensor, xkv: torch.Tensor):
-    B, S = xq.shape[0], xq.shape[1]
-    T = xkv.shape[1]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = xq @ p["wq"]
     k = xkv @ p["wk"]
@@ -135,9 +144,7 @@ def _project_qkv(p: dict, cfg, xq: torch.Tensor, xkv: torch.Tensor):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, T, KV, hd)
-    v = v.reshape(B, T, KV, hd)
+    q, k, v = split_dim(q, 2, H), split_dim(k, 2, KV), split_dim(v, 2, KV)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -149,7 +156,8 @@ def self_attention_qkv(p: dict, cfg, x: torch.Tensor, rope):
     :func:`rope_tables`) — k and v are also what prefill hands to the decode
     cache."""
     q, k, v = _project_qkv(p, cfg, x, x)
-    return rotate(q, rope), rotate(k, rope), v
+    heads = Spec(BATCH, None, "model", None)
+    return shard(rotate(q, rope), heads), shard(rotate(k, rope), heads), v
 
 
 _NEG_INF = -1e30
@@ -175,7 +183,9 @@ def _mask_block(qi, kj, *, causal: bool, window: int, prefix_len: int,
 
 def plain_attention(q, k, v, *, causal=True, window=0, prefix_len=0, scale=None):
     """The reference's ``plain_attention``: q (B, S, H, hd), k/v (B, T, KV,
-    hd) -> (B, S, H, hd) through the full (S, T) score matrix, differentiable."""
+    hd) -> (B, S, H, hd) through the full (S, T) score matrix, differentiable
+    (k, v through ``mesh_ops.kv_for_mesh``)."""
+    k, v = kv_for_mesh(q, k, v)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
@@ -195,7 +205,9 @@ def blockwise_attention(q, k, v, *, causal=True, window=0, prefix_len=0,
     score matrix is built. Causal chunks wholly above the diagonal (or, with
     a ``window``, wholly before it) are skipped, not masked, by the
     reference's static per-chunk bounds, so the work is ~S^2/2. S and T are
-    zero-padded to their chunk multiples and the padded keys masked."""
+    zero-padded to their chunk multiples and the padded keys masked (k, v
+    through ``mesh_ops.kv_for_mesh``)."""
+    k, v = kv_for_mesh(q, k, v)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -250,7 +262,7 @@ def apply_self_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         out = plain_attention(q, k, v, **kw)
     else:
         out = blockwise_attention(q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk, **kw)
-    return out.reshape(x.shape[0], S, -1) @ p["wo"]
+    return merge_dims(out, 2, 3) @ p["wo"]
 
 
 def attend_full(p: dict, q, k, v, *, causal=True, window=0, prefix_len=0):
@@ -273,10 +285,14 @@ def apply_cross_attention(p: dict, cfg, x: torch.Tensor, mem_k: torch.Tensor,
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    q = q.float().reshape(B, S, KV, H // KV, hd)
+    q = split_dim(q.float(), 2, KV).reshape(B, S, KV, H // KV, hd)
     s = torch.einsum("bqkgh,btkh->bqkgt", q, mem_k.float()) / math.sqrt(hd)
     out = torch.einsum("bqkgt,btkh->bqkgh", torch.softmax(s, dim=-1), mem_v.float())
-    return out.reshape(B, S, -1).to(x.dtype) @ p["wo"]
+    # one 2-D product, the one the plain (B, S, H * hd) @ W_o folds to: on a
+    # DTensor, whose propagated strides of the size-1 query dim may differ,
+    # matmul would not fold and would round differently
+    out = merge_dims(out, 2, 4).reshape(B * S, -1)
+    return (out.to(x.dtype) @ p["wo"]).reshape(B, S, -1)
 
 
 def project_memory_kv(p: dict, cfg, mem: torch.Tensor):
@@ -289,7 +305,7 @@ def project_memory_kv(p: dict, cfg, mem: torch.Tensor):
     if cfg.qkv_bias:
         k = k + p["bk"]
         v = v + p["bv"]
-    return k.reshape(B, T, KV, hd), v.reshape(B, T, KV, hd)
+    return split_dim(k, 2, KV), split_dim(v, 2, KV)
 
 
 def decode_positions(position, batch: int, device) -> torch.Tensor:
@@ -309,20 +325,32 @@ def apply_self_attention_decode(p: dict, cfg, x, position, k_cache, v_cache,
     tensors and never touches ``k_cache``/``v_cache``, so every engine
     snapshot that holds the old tensors stays valid. ``write_idx`` is an int
     (one slot for the whole batch) or a (B,) tensor of per-slot ring indices;
-    ``cache_len`` is a (B,) int32 tensor."""
+    ``cache_len`` is a (B,) int32 tensor.
+
+    On a mesh (``mesh_active``: a DTensor cache, its window perhaps
+    split over 'model') the write is the reference's masked ``where`` over
+    the window: an indexed write into a split window would make the
+    partitioner gather the whole cache (the reference measured 56 GB a step
+    on kimi x decode_32k), and DTensor has no indexed write into a DTensor
+    at all. Elsewhere it is the indexed write into a clone."""
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x, x)                       # S == 1
     if rope is None:
         rope = rope_tables(decode_positions(position, B, x.device),
                            cfg.head_dim, cfg.rope_theta)
     q, k = rotate(q, rope), rotate(k, rope)
-    k_cache = k_cache.clone()
-    v_cache = v_cache.clone()
-    if isinstance(write_idx, torch.Tensor):
+    if mesh_active(k_cache):
+        idx = torch.as_tensor(write_idx, device=x.device).reshape(-1, 1, 1, 1)
+        slot = torch.arange(k_cache.shape[1], device=x.device)[None, :, None, None] == idx
+        k_cache = torch.where(slot, k.to(k_cache.dtype), k_cache)
+        v_cache = torch.where(slot, v.to(v_cache.dtype), v_cache)
+    elif isinstance(write_idx, torch.Tensor):
+        k_cache, v_cache = k_cache.clone(), v_cache.clone()
         rows = torch.arange(B, device=x.device)
         k_cache[rows, write_idx.long()] = k[:, 0].to(k_cache.dtype)
         v_cache[rows, write_idx.long()] = v[:, 0].to(v_cache.dtype)
     else:
+        k_cache, v_cache = k_cache.clone(), v_cache.clone()
         k_cache[:, write_idx] = k[:, 0].to(k_cache.dtype)
         v_cache[:, write_idx] = v[:, 0].to(v_cache.dtype)
     out = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, cache_len)

@@ -52,6 +52,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import mesh_ops as M
+from repro_torch.distributed.sharding import Spec
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -135,6 +137,16 @@ def _init_layer_state(cfg: ModelConfig, sig, batch: int, window: int, device,
     return st
 
 
+def _add(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The residual add of a sublayer's output ``h``. On a mesh ``h`` is
+    first placed as the reference constrains a block's output
+    (``Spec(BATCH, None, None)``): a partial sum left by a contraction over
+    'model' is reduced where it is made, as the reference's partitioner
+    reduces at the product, and not carried into the next products, which
+    would then run whole on every 'model' rank."""
+    return x + M.shard(h, M.BLOCK)
+
+
 def _final_state(mp: dict, cfg: ModelConfig, kind: str, h: torch.Tensor) -> dict:
     """The recurrent state after consuming h (B, S, d), stepping token by
     token from the zero state as decode does (the reference's stepwise
@@ -189,12 +201,14 @@ class Model:
         positions = torch.arange(x.shape[1], device=x.device)[None]
         rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         for bp in enc["layers"]:
+            bp = M.gather_fsdp(bp, x)
             h = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
             if differentiable:
-                x = x + L.apply_self_attention(bp["mixer"], cfg, h, positions, causal=False)
+                x = _add(x, L.apply_self_attention(bp["mixer"], cfg, h, positions,
+                                                      causal=False))
             else:
                 q, k, v = L.self_attention_qkv(bp["mixer"], cfg, h, rope)
-                x = x + L.attend_full(bp["mixer"], q, k, v, causal=False)
+                x = _add(x, L.attend_full(bp["mixer"], q, k, v, causal=False))
             x = self._ffn(bp, x)
         return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
@@ -218,6 +232,7 @@ class Model:
             mem = self.encode(params, extra["frames"], differentiable=differentiable)
         positions = torch.arange(x.shape[1], device=x.device)[None]
         rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        x = M.shard(x, M.BLOCK)
 
         def block(bp, sig, x):
             return self._block(bp, sig, x, positions, rope, mem=mem, window=window,
@@ -231,7 +246,7 @@ class Model:
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         if last_only:
             x = x[:, -1:]
-        return self._unembed(params, x), aux
+        return M.shard(self._unembed(params, x), Spec(M.BATCH, None, "model")), aux
 
     def _block(self, bp, sig, x, positions, rope, *, mem=None, window=0, prefix_len=0,
                differentiable=False):
@@ -241,6 +256,7 @@ class Model:
         recurrent mixer's full sequence), the audio cross-attention over
         ``mem``, then the capacity MoE or the FFN."""
         cfg = self.cfg
+        bp = M.gather_fsdp(bp, x)
         h = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
         if sig[0] != "attn":
             h = _RECURRENT[sig[0]].apply(bp["mixer"], cfg, h)
@@ -250,25 +266,25 @@ class Model:
         else:
             q, k, v = L.self_attention_qkv(bp["mixer"], cfg, h, rope)
             h = L.attend_full(bp["mixer"], q, k, v, window=window, prefix_len=prefix_len)
-        x = x + h
+        x = _add(x, h)
         if mem is not None:
             x = self._cross(bp, x, *L.project_memory_kv(bp["cross"], cfg, mem))
         aux = x.new_zeros((), dtype=torch.float32)
         if "moe" in bp:
             h, aux = MOE.apply_moe(bp["moe"], cfg, L.rms_norm(x, bp["norm2"], cfg.norm_eps))
-            x = x + h
+            x = _add(x, h)
         elif "ffn" in bp:
-            x = x + L.apply_mlp(bp["ffn"], L.rms_norm(x, bp["norm2"], cfg.norm_eps))
-        return x, aux
+            x = _add(x, L.apply_mlp(bp["ffn"], L.rms_norm(x, bp["norm2"], cfg.norm_eps)))
+        return M.shard(x, M.BLOCK), aux
 
     def _cross(self, bp, x, mem_k, mem_v):
         """x plus the block's cross-attention over the memory K/V."""
         h = L.rms_norm(x, bp["norm_cross"], self.cfg.norm_eps)
-        return x + L.apply_cross_attention(bp["cross"], self.cfg, h, mem_k, mem_v)
+        return _add(x, L.apply_cross_attention(bp["cross"], self.cfg, h, mem_k, mem_v))
 
     def _unembed(self, params, x):
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
-        return x @ w
+        return x @ M.gather_fsdp(w, x)
 
     def _ffn(self, bp, x, exact: bool = True):
         """The block's second half: the MoE (the dropless one, serving's exact
@@ -277,17 +293,16 @@ class Model:
         if "moe" in bp:
             moe = MOE.apply_moe_exact if exact else MOE.apply_moe
             h, _ = moe(bp["moe"], self.cfg, L.rms_norm(x, bp["norm2"], self.cfg.norm_eps))
-            return x + h
+            return _add(x, h)
         if "ffn" in bp:
-            x = x + L.apply_mlp(bp["ffn"], L.rms_norm(x, bp["norm2"],
-                                                      self.cfg.norm_eps))
+            x = _add(x, L.apply_mlp(bp["ffn"], L.rms_norm(x, bp["norm2"], self.cfg.norm_eps)))
         return x
 
     def _embed_inputs(self, params, tokens, extra: Optional[dict]):
         """Token embeddings; a VLM's ``extra["patches"]`` (B, P, d) go in
         front as a prefix that attends both ways; a model without rope adds
         sinusoidal positions. -> (x, prefix_len)."""
-        x = params["embed"][tokens]
+        x = M.gather_fsdp(params["embed"], tokens)[tokens]
         prefix_len = 0
         if self.cfg.family == "vlm" and extra is not None and "patches" in extra:
             patches = extra["patches"].to(device=x.device, dtype=x.dtype)
@@ -385,7 +400,7 @@ class Model:
     def _decode_embed(self, params, token, pos):
         """The step's input (B, 1, d): token embeddings, plus sinusoidal
         positions for a model without rope."""
-        x = params["embed"][token.long()][:, None]
+        x = M.gather_fsdp(params["embed"], token)[token.long()][:, None]
         if self.cfg.rope_theta <= 0:
             x = x + L.sinusoid_at(L.decode_positions(pos, x.shape[0], x.device),
                                   self.cfg.d_model).to(x.dtype)
@@ -402,6 +417,7 @@ class Model:
         layer from that layer's window (every attention layer has the same
         one; a model may have none, or start with a recurrent layer)."""
         cfg = self.cfg
+        bp = M.gather_fsdp(bp, x)
         h = L.rms_norm(x, bp["norm1"], cfg.norm_eps)
         if sig[0] == "attn":
             if not shared:
@@ -417,7 +433,7 @@ class Model:
         else:
             h, ssm = _RECURRENT[sig[0]].step(bp["mixer"], cfg, h, st["ssm"])
             st = dict(st, ssm=ssm)
-        x = x + h
+        x = _add(x, h)
         if "cross_k" in st:            # the step hands the memory K/V on as they are
             x = self._cross(bp, x, st["cross_k"], st["cross_v"])
         return self._ffn(bp, x, exact=exact_moe), st
@@ -467,7 +483,7 @@ class Model:
             else:
                 state.append({"ssm": _final_state(bp["mixer"], cfg, sig[0], h)})
                 h = _RECURRENT[sig[0]].apply(bp["mixer"], cfg, h)
-            x = x + h
+            x = _add(x, h)
             if mem is not None:
                 mk, mv = L.project_memory_kv(bp["cross"], cfg, mem)
                 state[-1].update(cross_k=mk.to(dtype), cross_v=mv.to(dtype))

@@ -24,6 +24,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.mesh_ops import shard
+from repro_torch.distributed.sharding import Spec
+
 
 def _normal(gen, shape, scale, dtype):
     return (torch.randn(shape, generator=gen, device=gen.device,
@@ -112,7 +115,11 @@ def _dispatch_chunk(p: dict, m, xc: torch.Tensor):
     slot = torch.where(keep, flat_e * C + pos, E * C)            # E * C: the trash row
     src = xc.repeat_interleave(k, dim=0)                        # row t*k + j is token t
     buf = xc.new_zeros((E * C + 1, d)).index_copy(0, slot, src)[:E * C]
-    out_buf = _swiglu(buf.reshape(E, C, d), p["w_gate"], p["w_up"], p["w_down"])
+    # experts over 'model' (E -> 'model', f -> 'data'): the dispatch buffer
+    # keeps d whole, so the e, d -> f contraction is local, as in the reference
+    buf = shard(buf.reshape(E, C, d), Spec("model", None, None))
+    out_buf = shard(_swiglu(buf, p["w_gate"], p["w_up"], p["w_down"]),
+                    Spec("model", None, None))
     gathered = torch.cat([out_buf.reshape(E * C, d), out_buf.new_zeros((1, d))])[slot]
     w = (topw.reshape(-1) * keep).float()[:, None]
     out = (gathered.float() * w).reshape(Tc, k, d).sum(1)

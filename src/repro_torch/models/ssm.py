@@ -27,6 +27,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.mesh_ops import elementwise, merge_dims, split_dim
 from repro_torch.models.layers import normal, rms_norm
 
 _EPS = 1e-6
@@ -193,15 +194,14 @@ def init_mlstm(gen: torch.Generator, cfg, dtype=torch.float32) -> dict:
 
 def _mlstm_qkvif(p, cfg, xu):
     """xu (B, S, d_in) -> q, k, v (B, S, H, hd), log f, log i (B, S, H)."""
-    B, S, d_in = xu.shape
     H = cfg.num_heads
-    hd = d_in // H
-    q = (xu @ p["wq"]).reshape(B, S, H, hd)
-    k = ((xu @ p["wk"]) / math.sqrt(hd)).reshape(B, S, H, hd)
-    v = (xu @ p["wv"]).reshape(B, S, H, hd)
+    hd = xu.shape[-1] // H
+    q = split_dim(xu @ p["wq"], 2, H)
+    k = split_dim((xu @ p["wk"]) / math.sqrt(hd), 2, H)
+    v = split_dim(xu @ p["wv"], 2, H)
     gi, gf = torch.chunk(xu.float() @ p["w_if"], 2, dim=-1)
     log_i = torch.clamp(gi + p["b_i"], -12.0, 4.0)           # capped exp input gate
-    log_f = F.logsigmoid(gf + p["b_f"])                     # f in (0, 1)
+    log_f = elementwise(F.logsigmoid, gf + p["b_f"])        # f in (0, 1)
     return q, k, v, log_f, log_i
 
 
@@ -243,7 +243,7 @@ def apply_mlstm(p, cfg, x: torch.Tensor) -> torch.Tensor:
         last = torch.exp(cf[:, -1])                         # (B, H)
         C = last[..., None, None] * C + torch.einsum("bjh,bjhd,bjhe->bhde", decay, kb, vb)
         n = last[..., None] * n + torch.einsum("bjh,bjhd->bhd", decay, kb)
-    y = torch.cat(ys, 1).reshape(B, S, d_in)
+    y = merge_dims(torch.cat(ys, 1), 2, 3)
     return _mlstm_out(p, cfg, y, z, x.dtype)
 
 
@@ -319,12 +319,11 @@ def _slstm_cell(p, cfg, xw, st):
     """xw (B, 4 d_in): the step's input contribution; st: the state."""
     H = cfg.num_heads
     B, d4 = xw.shape
-    hd = d4 // 4 // H
-    rec = torch.einsum("bhk,hkj->bhj", st["h"].reshape(B, H, hd), p["r_gates"])
-    gates = xw + rec.reshape(B, d4) + p["b_gates"]
+    rec = torch.einsum("bhk,hkj->bhj", split_dim(st["h"], 1, H), p["r_gates"])
+    gates = xw + merge_dims(rec, 1, 2) + p["b_gates"]
     gi, gf, gz, go = torch.chunk(gates, 4, dim=-1)
     # stabilised exponential gating (xLSTM eq. 15-17)
-    log_f = F.logsigmoid(gf)
+    log_f = elementwise(F.logsigmoid, gf)
     gi = torch.clamp(gi, -12.0, 8.0)
     m_new = torch.maximum(log_f + st["m"], gi)
     i = torch.exp(gi - m_new)

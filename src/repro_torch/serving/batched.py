@@ -84,6 +84,22 @@ class BatchedServeEngine:
     def _set_bundle(self, bundle) -> None:
         self._state, self._pos, self._last_logits = bundle
 
+    def warm(self, lengths: Sequence[int]) -> None:
+        """One per-slot prefill at each context length in ``lengths`` and one
+        batched decode step over the live bundle, as the reference's ``warm``:
+        a timed run that follows pays for no kernel build and no allocator
+        growth. Nothing is scattered or committed, so every slot, snapshot and
+        stat stays as it was."""
+        with torch.no_grad():
+            for n in sorted(set(int(x) for x in lengths)):
+                toks = torch.zeros((1, n), dtype=torch.long, device=self.device)
+                self.model.prefill(self.params, toks, extra=self.extra,
+                                   window_cache=self.W)
+            self.model.decode_step(self.params, self._state,
+                                   torch.zeros((self.n_slots,), dtype=torch.long,
+                                               device=self.device), self._pos)
+        _sync(self.device)
+
     # ---- slot lifecycle ---------------------------------------------------------------
     def admit(self, slot: int, prompt: Sequence[int],
               doc: Sequence[int] = ()) -> None:

@@ -67,6 +67,22 @@ class ServeEngine:
         self._pos = 0
         self._last_logits = None
 
+    def warm(self, lengths: Sequence[int]) -> None:
+        """One prefill at each context length in ``lengths`` and one decode
+        step after the longest, so that a timed run that follows pays for no
+        kernel build and no allocator growth (the reference's ``warm``
+        precompiles the same shapes). The engine's request, state and stats
+        are left as they were."""
+        with torch.no_grad():
+            for n in sorted(set(int(x) for x in lengths)):
+                toks = torch.zeros((1, n), dtype=torch.long, device=self.device)
+                _, state, pos = self.model.prefill(self.params, toks, extra=self.extra,
+                                                   window_cache=self.W)
+            self.model.decode_step(self.params, state,
+                                   torch.zeros((1,), dtype=torch.long, device=self.device),
+                                   pos)
+        _sync(self.device)
+
     # ---- request lifecycle -----------------------------------------------------------
     def start(self, prompt: Sequence[int], doc: Sequence[int] = ()) -> None:
         self.tokens = list(prompt)

@@ -16,8 +16,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.mesh_ops import BATCH, shard
+from repro_torch.distributed.sharding import Spec
 from repro_torch.models.model import Model, build_model
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState, adamw_update,
                                             decay_mask, init_adamw)
@@ -75,6 +78,22 @@ def value_and_grad(loss_fn, params, batch):
             tree_unflatten(params, grads))
 
 
+def microbatches(batch: dict, n: int) -> list:
+    """The ``n`` microbatches of ``batch``: microbatch i holds rows i * B / n
+    .. (i + 1) * B / n of every leaf, as the reference's reshape cuts them.
+    On a mesh each leaf is first gathered whole (DTensor cannot cut a batch
+    dim split over the mesh into microbatches) and each microbatch is split
+    over the batch axes again (``mesh_ops.shard``)."""
+    out = [{} for _ in range(n)]
+    for k, v in batch.items():
+        if isinstance(v, DTensor):
+            v = v.redistribute(v.device_mesh, [Replicate()] * v.device_mesh.ndim)
+        v = v.reshape((n, v.shape[0] // n) + v.shape[1:])
+        for i in range(n):
+            out[i][k] = shard(v[i], Spec(BATCH, *([None] * (v.ndim - 2))))
+    return out
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig, *, window: int = 0,
                     remat: bool = False, num_microbatches: int = 1):
     """train_step(params, opt_state, batch) -> (params, opt_state, metrics):
@@ -93,9 +112,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *, window: int = 0,
             total, parts, grads = value_and_grad(loss_fn, params, batch)
         else:
             grads, totals, part_list = None, [], []
-            for i in range(n):
-                mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
-                      for k, v in batch.items()}
+            for mb in microbatches(batch, n):
                 t, p, g = value_and_grad(loss_fn, params, mb)
                 g = tree_map(lambda x: x.float(), g)
                 grads = g if grads is None else tree_map(torch.add, grads, g)

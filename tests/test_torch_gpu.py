@@ -824,3 +824,33 @@ def test_stacked_decode_matches_flat_at_the_long_context_window(cuda):
             assert (n1 - n0, DA.launches - n1) == (cfg.num_layers, cfg.num_layers)
             assert (s_logits - f_logits).abs().max().item() <= 1e-5
             tok = f_logits.argmax(-1)
+
+
+def test_attention_kernels_on_one_device_mesh(cuda):
+    """B2 and B3 handed DTensors on the 1 x 1 CUDA mesh launch their kernel
+    once each on the local tensors (``local_map``) and give the plain-tensor
+    launch's output exactly, placed whole; the fake group is torn down
+    after."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.launch.mesh import make_local_mesh
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, S, H, KV, hd, W = 2, 40, 8, 2, 64, 96
+    q1 = torch.randn((B, H, hd), generator=g, device=cuda)
+    kc, vc = (torch.randn((B, W, KV, hd), generator=g, device=cuda) for _ in range(2))
+    lens = torch.tensor([17, W], dtype=torch.int32, device=cuda)
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device=cuda) for n in (H, KV, KV))
+    mesh = make_local_mesh(cuda)
+    try:
+        rep = [Replicate(), Replicate()]
+        d = [distribute_tensor(t, mesh, rep) for t in (q1, kc, vc, q, k, v)]
+        with torch.no_grad():
+            n0, m0 = DA.launches, PA.launches
+            out_d = DA.decode_attention(d[0], d[1], d[2], lens)
+            out_p = PA.prefill_attention(d[3], d[4], d[5], window=9)
+            assert (DA.launches - n0, PA.launches - m0) == (1, 1)
+            assert tuple(out_d.placements) == tuple(out_p.placements) == tuple(rep)
+            assert torch.equal(out_d.to_local(), DA.decode_attention(q1, kc, vc, lens))
+            assert torch.equal(out_p.to_local(), PA.prefill_attention(q, k, v, window=9))
+    finally:
+        dist.destroy_process_group()
