@@ -25,7 +25,9 @@
    (ROADMAP fault C2); B2 and B3 at hd 256 (paligemma-3b's 8 / 1 heads,
    timed), 112 and 32, at cache_len 0 and past W, causal, windowed and with
    a prefix (ROADMAP fault C3), and at hd 264, 384 and 512 through the
-   wide-head kernels (timed at hd 512 against SDPA, its backend named); B3
+   wide-head kernels (timed at hd 512 against SDPA, its backend named: B2
+   at the fleet's B=4, RaLMSeq's B=1 and 8 query heads a KV head, B3 at
+   S=160 causal; B2 also at W = 16,384, 64 chunks merged); B3
    bidirectional at whisper-base's encoder shape (S = 1500, 8 / 8 heads at
    hd 64), timed; the sharded backends against the unsharded kernel
    backends byte for byte on the serving KB (``sharded`` == ``kernel``,
@@ -415,7 +417,8 @@ def time_decode(K, q, kc, vc, lens, gen) -> dict:
         r["cold_sets"] = len(sets)
         cold = f"  cold L2 {r['cold_device_ms']:.4f} ms device ({len(sets)} caches)"
     print(f"B2 decode_attention {r['shape']}: {fmt_times(t, f'SDPA ({backend})')}  plain "
-          f"{plain:.4f} ms  bound {bms:.5f} ms ({by})  max abs err {err:.2e}{cold}")
+          f"{plain:.4f} ms  bound {bms:.5f} ms ({by}, {bms / t['device_ms']:.1%} of the "
+          f"device time)  max abs err {err:.2e}{cold}")
     return r
 
 
@@ -548,7 +551,8 @@ def time_prefill(K, q, k, v, kw: dict, label: str) -> dict:
     pairs = int(K.allowed_mask(S, S, device=q.device, **kw).sum())
     bms, by = bound_ms(4.0 * S * (2 * H + 2 * KV) * hd, 4.0 * pairs * H * hd)
     print(f"B3 prefill_attention {label}: {fmt_times(t, f'SDPA ({backend})')}  plain "
-          f"{plain:.4f} ms  bound {bms:.5f} ms ({by})  max abs err {err:.2e}")
+          f"{plain:.4f} ms  bound {bms:.5f} ms ({by}, {bms / t['device_ms']:.1%} of the "
+          f"device time)  max abs err {err:.2e}")
     return dict(max_abs_err=err, plain_ms=plain, bound_ms=bms, bound_by=by, shape=label,
                 sdpa_backend=backend, **t)
 
@@ -616,7 +620,9 @@ def check_wide_heads(dev, report: dict) -> None:
     call; B3 causal, windowed, with a prefix and bidirectional; each within
     2e-5 of the plain version. Timed at hd 512 against SDPA (under the
     backend that takes hd 512, named): B2 at the fleet's B=4 (16 / 16
-    heads, W=512) and B3 at S=160 causal."""
+    heads, W=512), at RaLMSeq's B=1 (L=512) and at 8 query heads a KV head
+    (B=4, 16 / 2 heads), and B3 at S=160 causal. B2 also at W = 16,384
+    (64 and 57 chunks merged) against the plain version."""
     from repro_torch.kernels import decode_attention as DK
     from repro_torch.kernels import prefill_attention as PK
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -626,11 +632,23 @@ def check_wide_heads(dev, report: dict) -> None:
     before = DK.launches
     report["decode_attention@hd512"] = time_decode(DK, q, kc, vc, lens, gen)
     check(DK.launches > before, "B2 hd 512: no launch")
+    report["decode_attention@hd512 B=1"] = time_decode(DK, q[3:4], kc[3:4], vc[3:4],
+                                                       lens[3:4].clone(), gen)
+    q, kc, vc = decode_inputs(gen, 4, W, 16, 2, 512, dev)
+    report["decode_attention@hd512 G=8"] = time_decode(DK, q, kc, vc, lens, gen)
+    long = torch.tensor([16384, 9000], dtype=torch.int32, device=dev)
+    q, kc, vc = decode_inputs(gen, 2, 16384, 8, 2, 512, dev)
+    err = (DK.decode_attention(q, kc, vc, long)
+           - DK.decode_attention_plain(q, kc, vc, long)).abs().max().item()
+    check(err <= 2e-5, f"B2 hd 512 W=16384 lens={long.tolist()}: {err}")
+    print(f"B2 hd=512 H=8 KV=2 W=16384 cache_len={long.tolist()}: max abs err {err:.2e}")
+    del q, kc, vc
     q, k, v = (torch.randn((1, S, 16, 512), generator=gen, device=dev) for _ in range(3))
     report["prefill_attention@hd512"] = time_prefill(
         PK, q, k, v, dict(causal=True, window=0, prefix_len=0),
         f"B=1 S={S} H=KV=16 hd=512 causal")
-    edge = torch.tensor([0, 1, 63, 64, 65, W, W + 9], dtype=torch.int32, device=dev)
+    edge = torch.tensor([0, 1, 31, 32, 33, 63, 64, 65, W, W + 9], dtype=torch.int32,
+                        device=dev)
     worst = 0.0
     for hd, H, KV in ((264, 8, 1), (384, 16, 4), (512, 8, 2)):
         q, kc, vc = decode_inputs(gen, len(edge), W, H, KV, hd, dev)

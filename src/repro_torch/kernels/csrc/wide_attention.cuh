@@ -1,30 +1,38 @@
-// Attention of one query row over a run of cache or sequence entries at a
-// head dim above 256: the wide-head path of B2 (decode_attention.cu) and B3
-// (prefill_attention.cu). Both kernels' instances stop at hd 256, whose
-// arrays and tiles are sized at compile time; this path takes any hd that
-// is a multiple of 4 (the wrappers zero-pad the rest, with the real hd's
-// softmax scale), and the hd <= 256 instances never run it.
+// The wide-head paths of B2 (decode_attention.cu, decode_wide_kernel) and
+// B3 (prefill_attention.cu, prefill_wide_kernel): attention at a head dim
+// above 256, the widest instance of either kernel. They take any hd that is
+// a multiple of 4 (the wrappers zero-pad the rest, with the real hd's
+// softmax scale); the hd <= 256 instances never run them.
 //
 // Replaces, above hd 256: src/repro/kernels/decode_attention.py::
 // decode_attention_pallas (line 66) and src/repro/kernels/prefill_attention.py::
 // prefill_attention_pallas (line 90), which are shaped by hd alone.
 //
-// Bound on an H100: device-memory bandwidth for decode (each valid key and
-// value read once, about 0.5 FLOP a byte), the fp32 CUDA cores for a long
-// prefill. No config of the repo has hd > 256, so the design is the simple
-// one and not a fast one: one CTA of kThreads per (query row, head) walks
-// its entries in tiles of kTile. Warp w scores entries w, w + kWarps, ... of
-// a tile: its lanes walk the float4 columns lane, lane + 32, ... (one fmaf
-// chain each) and a shuffle tree sums them. Warp 0 then turns the tile's 32
-// scores into online-softmax weights (a max and a sum over its lanes), and
-// each thread folds the weights into its own float4 columns of the
-// accumulator, which is the output row itself in device memory, so no array
-// is sized by hd and any hd fits. A thread reads back only the columns it
-// wrote, in program order, so the accumulator needs no barrier. The walk,
-// the tiles and every sum depend only on the row's own entries and hd: an
-// output row is the same bytes at any batch size. Entries past the run
-// (decode: index >= cache_len) are never read; a masked entry's weight is 0
-// and its value is not read either.
+// What bounds them on an H100. Decode reads each valid key and value once
+// (about 0.5 FLOP a byte at one query head a KV head): device-memory
+// bandwidth, so what counts is how many bytes are in flight on every SM and
+// how little else sits between one tile's arrival and the next one's
+// request. Prefill does 4 * hd FLOPs a (query, key) pair and reads each row
+// once: the fp32 CUDA cores, so what counts is that the rows of one q tile
+// share every K/V load, and how many FMAs a shared-memory load feeds.
+//
+// What both share, here. Rows (cache entries, keys, query rows) move from
+// device memory into shared memory as tiles of up to 16 rows by one column
+// slice of kSlice float4 (512 floats), through a ring of kStages slots.
+// One warp asks the copy engine for a tile, a bulk copy (cp.async.bulk) a
+// row, and the tile's mbarrier completes when its bytes have landed: no
+// other thread spends an instruction on a load, and while one tile is in
+// use the next kStages - 1 (or - 2) are in flight. A row's columns are
+// walked slice by slice, so any hd fits: at hd <= 512 a row is one slice
+// and a tile holds whole rows (hd 264 is not padded to 512: a tile holds
+// its 66 float4 a row and no more). Above 512 each kernel makes one pass a
+// slice of output columns (the accumulator of one slice lives in
+// registers), scoring every pass over all slices. A row past the cache
+// length or the sequence is not copied: its slot row keeps stale bytes,
+// which a kernel masks out of the scores and never reads as a value. Every
+// tile boundary, every sum's order and every pass depends only on the
+// row's own length, hd and the group size, never on the batch: an output
+// row is the same bytes at any B.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,98 +40,86 @@
 
 namespace wide {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;                   // entries per tile: one a lane of warp 0
-constexpr float kNeg = -3.4e38f;            // the running max before any entry
-constexpr unsigned kAll = 0xffffffffu;
+constexpr int kSlice = 128;                  // float4 columns of a tile row
+constexpr int kPitch = 4 * kSlice + 4;       // floats between tile rows (16 B skew a row)
+constexpr int kStages = 4;                   // ring slots
 
-// out[0 .. hd) = softmax over the allowed entries t in [t_lo, t_hi) of
-// scale * q . k[t], times v[t]; entry t's key starts at k + t * stride
-// (floats), its value at v + t * stride. With uniform every allowed entry
-// scores 0 (equal weights: the mean of v) and no key is read. The caller
-// guarantees some entry in the run is allowed.
-template <class Allowed>
-__device__ void attend_row(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, size_t stride, int t_lo, int t_hi,
-                           Allowed allowed, bool uniform, float scale, int hd,
-                           float* __restrict__ out) {
-  __shared__ float s_p[kTile];
-  __shared__ float s_corr, s_l;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int nvec = hd / 4;
-  const float4* q4 = reinterpret_cast<const float4*>(q);
-  float4* o4 = reinterpret_cast<float4*>(out);
-  for (int c = tid; c < nvec; c += kThreads) o4[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  float m = kNeg, l = 0.0f;                 // warp 0's running max and sum
-
-  for (int t0 = t_lo; t0 < t_hi; t0 += kTile) {
-    for (int j = warp; j < kTile; j += kWarps) {
-      const int t = t0 + j;
-      const bool ok = t < t_hi && allowed(t);   // the same for the whole warp
-      float s = -INFINITY;                      // a masked entry
-      if (ok) {
-        s = 0.0f;
-        if (!uniform) {
-          const float4* k4 = reinterpret_cast<const float4*>(k + static_cast<size_t>(t) * stride);
-          float a = 0.0f;
-          for (int c = lane; c < nvec; c += 32) {
-            const float4 x = k4[c], y = q4[c];
-            a = fmaf(y.x, x.x, a);
-            a = fmaf(y.y, x.y, a);
-            a = fmaf(y.z, x.z, a);
-            a = fmaf(y.w, x.w, a);
-          }
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(kAll, a, o);
-          s = a * scale;
-        }
-      }
-      if (lane == 0) s_p[j] = s;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const float s = s_p[lane];
-      float mx = s;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kAll, mx, o));
-      const float mn = fmaxf(m, mx);
-      const float corr = expf(m - mn);
-      const float p = s == -INFINITY ? 0.0f : expf(s - mn);
-      float ps = p;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ps += __shfl_xor_sync(kAll, ps, o);
-      l = fmaf(l, corr, ps);
-      m = mn;
-      s_p[lane] = p;
-      if (lane == 0) {
-        s_corr = corr;
-        s_l = l;
-      }
-    }
-    __syncthreads();
-    const float corr = s_corr;
-    const int n = min(kTile, t_hi - t0);
-    for (int c = tid; c < nvec; c += kThreads) {
-      float4 a = o4[c];
-      a = make_float4(a.x * corr, a.y * corr, a.z * corr, a.w * corr);
-      for (int j = 0; j < n; ++j) {
-        const float p = s_p[j];
-        if (p == 0.0f) continue;            // masked: adds exactly 0, read nothing
-        const float4 x =
-            reinterpret_cast<const float4*>(v + static_cast<size_t>(t0 + j) * stride)[c];
-        a = make_float4(fmaf(p, x.x, a.x), fmaf(p, x.y, a.y), fmaf(p, x.z, a.z),
-                        fmaf(p, x.w, a.w));
-      }
-      o4[c] = a;
-    }
-    __syncthreads();                        // s_p is the next tile's
-  }
-  const float inv = 1.0f / fmaxf(s_l, 1e-30f);
-  for (int c = tid; c < nvec; c += kThreads) {
-    const float4 a = o4[c];
-    o4[c] = make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
-  }
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
+
+__device__ __forceinline__ float4 fma4(float p, float4 v, float4 a) {
+  return make_float4(fmaf(p, v.x, a.x), fmaf(p, v.y, a.y), fmaf(p, v.z, a.z),
+                     fmaf(p, v.w, a.w));
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The ring's slots complete on mbarriers: one arrival a phase (the lane that
+// asks for the tile, announcing its bytes) and the copies' bytes.
+__device__ __forceinline__ void bar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void bar_wait(unsigned long long* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// Warp-wide: ask the copy engine (cp.async.bulk) for a tile, lane r for row
+// r < valid: ncols float4 from src + r * stride (floats) to dst + r *
+// kPitch, completing on bar. Rows at r >= valid are not read and their
+// slot rows keep whatever they held: a kernel never reads them as values.
+__device__ __forceinline__ void fetch_tile(float* dst, const float* src, size_t stride,
+                                           int valid, int ncols, unsigned long long* bar) {
+  const int lane = threadIdx.x % 32;
+  if (lane == 0)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(valid * ncols * 16) : "memory");
+  __syncwarp();
+  if (lane < valid)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n"
+        :: "r"(smem_u32(dst + lane * kPitch)), "l"(src + lane * stride), "r"(ncols * 16),
+           "r"(smem_u32(bar))
+        : "memory");
+}
+
+// Where a walk over a kernel's tile sequence stands: pass, block, and the
+// tile within the block.
+struct Cursor {
+  int pass = 0, blk = 0, k = 0;
+  __device__ __forceinline__ void next(int tiles_a_block, int blocks) {
+    if (++k == tiles_a_block) {
+      k = 0;
+      if (++blk == blocks) {
+        blk = 0;
+        ++pass;
+      }
+    }
+  }
+};
 
 }  // namespace wide

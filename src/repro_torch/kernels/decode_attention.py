@@ -19,7 +19,9 @@ a multiple of 4), and :func:`decode_attention_plain` on CPU tensors.
 shards, the kernel on each rank's CUDA shards where :data:`MESH_RULES`
 allow. The kernel has no backward: the wrapper
 raises on inputs that require grad under grad mode, on either device. The kernel splits each slot's cache into chunks of
-:data:`CHUNK` entries. The wrapper keeps, per device, the scratch for the
+:data:`CHUNK` entries (above :data:`MAX_HD`, of :data:`WIDE_CHUNK` or a
+multiple of it, :data:`WIDE_MAX_CHUNKS` at most a slot; :func:`partials_size`).
+The wrapper keeps, per device, the scratch for the
 chunks' partials and a zeroed ticket buffer, which each launch leaves
 zeroed; both are made (or grown) on a call, so before any CUDA-graph
 capture that the caller warms up for, and a call allocates nothing else but
@@ -40,6 +42,8 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)   # the kernel's instances (csrc/decode_attention.cu)
 MAX_HD = HEAD_DIMS[-1]  # above it: the wide-head kernel (csrc/wide_attention.cuh)
 CHUNK = 64             # cache entries per CTA (kChunk in csrc/decode_attention.cu)
+WIDE_CHUNK = 32        # above MAX_HD: the shortest chunk (kWideBlock)
+WIDE_MAX_CHUNKS = 64   # above MAX_HD: a slot's chunks at most (kWideMaxChunks)
 MIN_SCRATCH = 1 << 18  # ticket ints and partial floats that a device's first scratch holds
 launches = 0
 # on one mesh dim, the placements of (q, k_cache, v_cache, cache_len) under
@@ -95,6 +99,18 @@ def pad_hd(t: torch.Tensor, n: int) -> torch.Tensor:
     return t if hd == n else torch.nn.functional.pad(t, (0, n - hd)).contiguous()
 
 
+def partials_size(B: int, H: int, W: int, n: int) -> int:
+    """Floats of the chunks' partials that a launch at instance head dim n
+    writes: an (acc, m, l) row of n + 2 floats per query head, slot and
+    chunk of the grid (ceil(W / CHUNK) chunks; above MAX_HD ceil(W /
+    WIDE_CHUNK), at most WIDE_MAX_CHUNKS)."""
+    if n > MAX_HD:
+        chunks = min(-(-W // WIDE_CHUNK), WIDE_MAX_CHUNKS)
+    else:
+        chunks = -(-W // CHUNK)
+    return B * H * chunks * (n + 2)
+
+
 def _scratch_for(device, n_tickets: int, n_partials: int):
     """The device's ticket counters (zeroed when made) and partials scratch,
     remade larger when a call needs more -> (tickets, partials, their data
@@ -142,8 +158,7 @@ def _kernel(q, k_cache, v_cache, cache_len):
     _build.check_kernel_inputs("decode_attention", torch.int32, cache_len)
     q, k_cache, v_cache = (pad_hd(t, n) for t in (q, k_cache, v_cache))
     out = torch.empty_like(q)
-    wide = n > MAX_HD                     # the wide-head kernel keeps no partials
-    scratch = _scratch_for(q.device, B * KV, 0 if wide else B * H * -(-W // CHUNK) * (n + 2))
+    scratch = _scratch_for(q.device, B * KV, partials_size(B, H, W, n))
     rc = _launch_fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                       cache_len.data_ptr(), out.data_ptr(), scratch[3], scratch[2],
                       B, H, W, KV, n, 1.0 / math.sqrt(hd), _build.stream_ptr(q.device))

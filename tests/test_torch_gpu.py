@@ -210,6 +210,89 @@ def test_prefill_attention_kernel_matches_plain_at_every_head_dim(cuda, hd, S, H
                            out[b])
 
 
+def _same_bytes_alone_and_again(call, args, B):
+    """The batched call's rows equal each sequence's B=1 call byte for byte,
+    and a second batched call gives the same bytes."""
+    out = call(*args)
+    assert torch.equal(call(*args), out)
+    for b in range(B):
+        one = tuple(t[b:b + 1].clone() for t in args)      # 16-byte aligned
+        assert torch.equal(call(*one)[0], out[b]), b
+    return out
+
+
+def _wide_decode_check(cuda, lens, W, H, KV, hd):
+    q, kc, vc, cl = _decode_inputs(cuda, H + KV + hd + W, lens, W, H, KV, hd)
+    before = DA.launches
+    out = DA.decode_attention(q, kc, vc, cl)
+    assert DA.launches == before + 1
+    torch.testing.assert_close(out, DA.decode_attention_plain(q, kc, vc, cl),
+                               rtol=0, atol=2e-5, msg=f"hd={hd} W={W} lens={lens}")
+    assert torch.equal(_same_bytes_alone_and_again(DA.decode_attention, (q, kc, vc, cl),
+                                                   len(lens)), out)
+    torch.cuda.synchronize()
+    assert not DA._scratch[q.device.index][0].any()
+
+
+@pytest.mark.parametrize("hd", [512, 264])
+def test_decode_wide_heads_at_twelve_heads_a_group(cuda, hd):
+    """The wide-head B2 at G = 12 (24 / 2 heads: a pass of 16 heads holds the
+    group): the fleet's lengths, then cache_len 0, the 32-entry chunk edges,
+    W and past W; within 2e-5 of plain, rows equal to B=1 calls and to a
+    repeated call, the tickets left at zero."""
+    _wide_decode_check(cuda, [1, 97, 300, 512], 512, 24, 2, hd)
+    _wide_decode_check(cuda, [0, 1, 31, 32, 33, 63, 64, 65, 512, 521], 512, 24, 2, hd)
+
+
+@pytest.mark.parametrize("lens", [(16384, 9000), (1, 16384)])
+def test_decode_wide_heads_merge_many_chunks(cuda, lens):
+    """W = 16,384 at hd 512 (8 / 2 heads): 16,384 entries are 64 chunks of
+    256, 9,000 are 57 of 160, so the merge runs over many partials."""
+    _wide_decode_check(cuda, list(lens), 16384, 8, 2, 512)
+
+
+@pytest.mark.parametrize("S,H,KV,hd,causal", [(1500, 4, 4, 384, False),
+                                              (1500, 4, 4, 512, False),
+                                              (1024, 8, 2, 384, True),
+                                              (1024, 8, 2, 512, True)])
+def test_prefill_wide_heads_long_sequences(cuda, S, H, KV, hd, causal):
+    """The wide-head B3 bidirectional at S = 1500 (whisper's encoder length)
+    and causal at S = 1024 with G = 4, B=2: within 2e-5 of plain, each
+    sequence's rows equal its B=1 call's and a repeated call's."""
+    g = torch.Generator(device=cuda).manual_seed(S + H + hd)
+    q = torch.randn((2, S, H, hd), generator=g, device=cuda)
+    k = torch.randn((2, S, KV, hd), generator=g, device=cuda)
+    v = torch.randn((2, S, KV, hd), generator=g, device=cuda)
+    kw = dict(causal=causal, window=0, prefix_len=0)
+    call = lambda *a: PA.prefill_attention(*a, **kw)  # noqa: E731
+    before = PA.launches
+    out = call(q, k, v)
+    assert PA.launches == before + 1
+    torch.testing.assert_close(out, PA.prefill_attention_plain(q, k, v, **kw),
+                               rtol=0, atol=2e-5)
+    assert torch.equal(_same_bytes_alone_and_again(call, (q, k, v), 2), out)
+
+
+@pytest.mark.parametrize("hd", [640, 1028])
+def test_wide_heads_above_one_column_slice(cuda, hd):
+    """hd above 512 (two and three 512-column slices, the last one short):
+    B2 at cache_len 0, the chunk edges and past W, and B3 causal, windowed,
+    with a prefix and bidirectional, within 2e-5 of plain, rows equal to
+    B=1 calls."""
+    _wide_decode_check(cuda, [0, 1, 31, 33, 300, 309], 300, 8, 2, hd)
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    for causal, window, prefix in ((True, 0, 0), (True, 24, 0), (True, 0, 19),
+                                   (False, 0, 0)):
+        q = torch.randn((2, 70, 8, hd), generator=g, device=cuda)
+        k = torch.randn((2, 70, 2, hd), generator=g, device=cuda)
+        v = torch.randn((2, 70, 2, hd), generator=g, device=cuda)
+        kw = dict(causal=causal, window=window, prefix_len=prefix)
+        call = lambda *a: PA.prefill_attention(*a, **kw)  # noqa: E731
+        out = _same_bytes_alone_and_again(call, (q, k, v), 2)
+        torch.testing.assert_close(out, PA.prefill_attention_plain(q, k, v, **kw),
+                                   rtol=0, atol=2e-5, msg=str(kw))
+
+
 def test_kernel_backend_on_cuda_matches_numpy(cuda):
     rng = np.random.default_rng(9)
     emb = _tie_heavy(rng, 2100, 32)
