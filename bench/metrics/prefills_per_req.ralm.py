@@ -1,0 +1,10 @@
+"""``prefills_per_req``, read as ``metrics/prefills_per_req.py`` reads it, in the cells
+whose end-to-end rate is the card's time a token (``device_ms_per_tok``)."""
+from pathlib import Path
+
+from bench.cells import load_module
+
+_BASE = load_module(Path(__file__).with_name("prefills_per_req.py"), "bench_metric_prefills_per_req")
+LAYER, UNIT, BETTER, SOURCE = _BASE.LAYER, _BASE.UNIT, _BASE.BETTER, _BASE.SOURCE
+MOVES = "device_ms_per_tok"
+read = _BASE.read
