@@ -84,6 +84,13 @@ class ServeResult:
     # mirroring the quantized backends' exact-bit pattern) | 'shed' (retired
     # by continuous-batching load shedding before serving a single token)
     status: str = "ok"
+    # the fleet servers' wall clock on the tracer's (``time.time_ns``, Unix
+    # ns): the request won its slot (before its first prefill), its first
+    # token settled (the end of its first verified round), it finished (its
+    # slot done with nothing left to verify); 0 where no fleet served it
+    admitted_ns: int = 0
+    first_token_ns: int = 0
+    finished_ns: int = 0
 
     @property
     def ok(self) -> bool:

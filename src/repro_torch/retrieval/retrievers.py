@@ -29,6 +29,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.retrieval.backends import (DenseSearchBackend, canonical_topk,
                                             make_backend)
 from repro_torch.retrieval.kb import DenseKB, SparseKB
@@ -142,9 +143,10 @@ class _TimedRetriever:
     def retrieve(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
         queries = self._prep(queries)
         warmup = self._cold_shape(len(queries), k)
-        t0 = time.perf_counter()
-        ids, scores = self._search(queries, k)
-        self.stats.add(len(queries), time.perf_counter() - t0, warmup=warmup)
+        with trace.span("kb.call", B=len(queries), k=k):
+            t0 = time.perf_counter()
+            ids, scores = self._search(queries, k)
+            self.stats.add(len(queries), time.perf_counter() - t0, warmup=warmup)
         return ids, scores
 
 

@@ -40,6 +40,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import EngineStats, _sync
 from repro_torch.tree import tree_map
@@ -134,15 +135,18 @@ class BatchedServeEngine:
     def _prefill_slot(self, slot: int) -> None:
         t0 = time.perf_counter()
         seq = list(self.doc[slot]) + self.tokens[slot]
-        toks = torch.as_tensor(np.asarray(seq, np.int64), device=self.device)[None]
-        with torch.no_grad():
-            last, state, pos = self.model.prefill(self.params, toks, extra=self.extra,
-                                                  window_cache=self.W)
-        self._state = tree_map(lambda c, r: _set_row(c, slot, r[0]),
-                                self._state, state)
-        self._pos = _set_row(self._pos, slot, pos)
-        self._last_logits = _set_row(self._last_logits, slot, last[0])
-        _sync(self.device)
+        with trace.span("engine.prefill", slot=slot, tokens=len(seq)):
+            with trace.span("engine.prefill.dispatch"):
+                toks = torch.as_tensor(np.asarray(seq, np.int64), device=self.device)[None]
+                with torch.no_grad():
+                    last, state, pos = self.model.prefill(self.params, toks, extra=self.extra,
+                                                          window_cache=self.W)
+                self._state = tree_map(lambda c, r: _set_row(c, slot, r[0]),
+                                        self._state, state)
+                self._pos = _set_row(self._pos, slot, pos)
+                self._last_logits = _set_row(self._last_logits, slot, last[0])
+            with trace.span("engine.sync"):
+                _sync(self.device)
         self.stats.prefill_time += time.perf_counter() - t0
         self.stats.prefills += 1
 
@@ -178,35 +182,41 @@ class BatchedServeEngine:
         live = [b for b, k in remaining.items() if k > 0]
         committed = self._bundle()
         current = committed
-        while live:
-            state, pos, logits = current
-            next_tok = torch.argmax(logits, dim=-1).cpu().numpy()
-            eos_exits, budget_exits = [], []
-            tok_vec = np.zeros((self.n_slots,), np.int64)
-            for b in live:
-                t = int(next_tok[b])
-                out[b].append(t)
-                self.tokens[b].append(t)
-                if t == self.eos_id:
-                    eos_exits.append(b)     # EOS: no decode for this token
-                    continue
-                tok_vec[b] = t
-                remaining[b] -= 1
-                if remaining[b] <= 0:
-                    budget_exits.append(b)  # budget: commit *after* this decode
-            if eos_exits:
-                committed = self._commit_bundle(current, committed, eos_exits)
-                live = [b for b in live if b not in eos_exits]
-                if not live:
-                    break
-            logits2, state2 = self._decode(state, tok_vec, pos)
-            pos2 = pos + self._mask(live).to(torch.int32)
-            current = (state2, pos2, logits2)
-            if budget_exits:
-                committed = self._commit_bundle(current, committed, budget_exits)
-                live = [b for b in live if b not in budget_exits]
-        self._set_bundle(committed)
-        _sync(self.device)
+        with trace.span("engine.decode", slots=len(live)):
+            while live:
+                state, pos, logits = current
+                with trace.span("engine.readback"):
+                    next_tok = torch.argmax(logits, dim=-1).cpu().numpy()
+                eos_exits, budget_exits = [], []
+                tok_vec = np.zeros((self.n_slots,), np.int64)
+                for b in live:
+                    t = int(next_tok[b])
+                    out[b].append(t)
+                    self.tokens[b].append(t)
+                    if t == self.eos_id:
+                        eos_exits.append(b)     # EOS: no decode for this token
+                        continue
+                    tok_vec[b] = t
+                    remaining[b] -= 1
+                    if remaining[b] <= 0:
+                        budget_exits.append(b)  # budget: commit *after* this decode
+                if eos_exits:
+                    with trace.span("engine.commit", slots=len(eos_exits)):
+                        committed = self._commit_bundle(current, committed, eos_exits)
+                    live = [b for b in live if b not in eos_exits]
+                    if not live:
+                        break
+                with trace.span("engine.dispatch", live=len(live)):
+                    logits2, state2 = self._decode(state, tok_vec, pos)
+                    pos2 = pos + self._mask(live).to(torch.int32)
+                current = (state2, pos2, logits2)
+                if budget_exits:
+                    with trace.span("engine.commit", slots=len(budget_exits)):
+                        committed = self._commit_bundle(current, committed, budget_exits)
+                    live = [b for b in live if b not in budget_exits]
+            self._set_bundle(committed)
+            with trace.span("engine.sync"):
+                _sync(self.device)
         self.stats.decode_time += time.perf_counter() - t0
         self.stats.decodes += sum(len(v) for v in out.values())
         return [out[int(b)] for b in slots]
@@ -223,7 +233,8 @@ class BatchedServeEngine:
         the batched form of ServeEngine.peek_logits (KNN-LM interpolation).
         One (vocab,) copy to the host per call."""
         assert self.active[slot], f"peek_logits of idle slot {slot}"
-        return self._last_logits[slot].cpu().numpy()
+        with trace.span("knn.peek", slot=slot):
+            return self._last_logits[slot].cpu().numpy()
 
     def advance(self, slots: Sequence[int], toks: Sequence[int]) -> None:
         """Append one externally-chosen token per given slot (KNN-LM: the
@@ -243,11 +254,15 @@ class BatchedServeEngine:
             t = int(t)
             self.tokens[b].append(t)
             tok_vec[b] = t
-        logits2, state2 = self._decode(state, tok_vec, pos)
-        pos2 = pos + self._mask(slots).to(torch.int32)
-        self._set_bundle(self._commit_bundle((state2, pos2, logits2), committed,
-                                             slots))
-        _sync(self.device)
+        with trace.span("engine.decode", slots=len(slots)):
+            with trace.span("engine.dispatch", live=len(slots)):
+                logits2, state2 = self._decode(state, tok_vec, pos)
+                pos2 = pos + self._mask(slots).to(torch.int32)
+            with trace.span("engine.commit", slots=len(slots)):
+                self._set_bundle(self._commit_bundle((state2, pos2, logits2), committed,
+                                                     slots))
+            with trace.span("engine.sync"):
+                _sync(self.device)
         self.stats.decode_time += time.perf_counter() - t0
         self.stats.decodes += len(slots)
 
@@ -277,5 +292,6 @@ class BatchedServeEngine:
             f"slot {slot}: snapshot is not from this request's lineage"
         self.tokens[slot] = self.tokens[slot][:n]
         self.doc[slot] = doc
-        self._set_bundle(tree_map(lambda c, o: c if c is o else _set_row(c, slot, o[slot]),
-                                   self._bundle(), bundle))
+        with trace.span("engine.restore", slot=slot):
+            self._set_bundle(tree_map(lambda c, o: c if c is o else _set_row(c, slot, o[slot]),
+                                       self._bundle(), bundle))

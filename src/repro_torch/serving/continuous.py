@@ -191,6 +191,7 @@ class ContinuousFleetServer(FleetServer):
                 b = free.pop(0)
                 st = self._new_request_state(rid=rq.rid, max_new=rq.max_new)
                 st.arrival, st.admitted = rq.arrival, clock
+                st.res.admitted_ns = time.time_ns()
                 eng.admit(b, list(rq.prompt)[-rcfg.max_prompt_len:])
                 states[b] = st
                 if rq.rid in self._preseed:  # seeded by an earlier round's call
@@ -227,6 +228,7 @@ class ContinuousFleetServer(FleetServer):
                     st.res.tokens = list(eng.generated(b))
                     st.res.analytic_time = clock - st.arrival
                     st.res.wall_time = time.perf_counter() - t0
+                    self._finish(b, st)
                     done[st.rid] = st
                     eng.retire(b)
                     del states[b]

@@ -63,12 +63,25 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
+from repro_torch import trace
 from repro_torch.configs.base import RaLMConfig
 from repro_torch.core.cache import SharedRetrievalCache
 from repro_torch.core.ralmspec import (RequestState, ServeResult, _ServerBase,
                                  dedup_queries)
 from repro_torch.retrieval.faults import RetrievalFailed
 from repro_torch.serving.workload import Workload, default_workload
+
+
+def _first_tokens(participants, states) -> None:
+    """Stamp the first token of each participant that has none yet: a
+    verified (or degraded) round leaves every slot that took part with at
+    least one settled token — a verified step's, or the correction's."""
+    now = 0
+    for b in participants:
+        res = states[b].res
+        if not res.first_token_ns:
+            now = now or time.time_ns()
+            res.first_token_ns = now
 
 
 @dataclass
@@ -100,19 +113,6 @@ class FleetResult:
     seed_failures: int = 0
     degraded_rounds: int = 0
     worker_crashes: int = 0
-    # measured wall-clock overlap ledger (monotonic clock, this box — NOT the
-    # modeled timeline): total wall seconds spent inside merged verification
-    # KB calls (verify_wall_s — accumulated in sync AND async rounds), wall
-    # seconds of the overlapped speculation strides the main thread ran while
-    # a call was in flight (overlap_wall_s), and the intersection of the two
-    # span sets (measured_overlap_s) — the seconds during which the worker's
-    # BLAS/device scan and the LM stride were DEMONSTRABLY concurrent. Only
-    # async rounds with the gate open contribute to the latter two; sync
-    # fleets leave them at exactly 0. measured_overlap_s <=
-    # min(verify_wall_s, overlap_wall_s) by construction.
-    verify_wall_s: float = 0.0
-    overlap_wall_s: float = 0.0
-    measured_overlap_s: float = 0.0
 
     @property
     def degraded_requests(self) -> int:
@@ -173,16 +173,6 @@ class FleetServer(_ServerBase):
         self.merged_rows_saved = 0
         # monotonic count of failed admission-seed calls (same diff pattern)
         self.seed_failures = 0
-        # measured wall-clock overlap ledger (same diff pattern; see
-        # FleetResult). time.monotonic spans: the worker records its KB-call
-        # span in _verify_span, the round loop intersects it with the
-        # overlapped stride's span. Both numpy BLAS and XLA release the GIL,
-        # so the spans genuinely interleave even on one core — a positive
-        # intersection is measured (not modeled) concurrency.
-        self.verify_wall = 0.0
-        self.overlap_wall = 0.0
-        self.overlap_measured = 0.0
-        self._verify_span = None
 
     # ---- per-slot predicates (fleet versions of _ServerBase._done/_budget) ---------
     # The inherited single-request forms read engine.finished/.generated, which on
@@ -200,6 +190,17 @@ class FleetServer(_ServerBase):
 
     def _slot_budget(self, b: int, st: RequestState) -> int:
         return st.budget_limit(self.rcfg) - len(self.engine.generated(b))
+
+    def _finish(self, b: int, st: RequestState) -> None:
+        """Stamp the finish of slot ``b``'s request (done, nothing left
+        unverified) and keep its ``request`` span."""
+        res = st.res
+        res.finished_ns = time.time_ns()
+        if trace.on():
+            trace.record("request", res.admitted_ns, res.finished_ns, rid=st.rid,
+                         prompt_len=self.engine.n_prompt[b],
+                         tokens=len(self.engine.generated(b)),
+                         first_token_ns=res.first_token_ns)
 
     def _extra_verification_queries(self, spec_elapsed: float) -> List:
         """Ride-along queries appended to the round's merged verification KB
@@ -260,25 +261,18 @@ class FleetServer(_ServerBase):
         self.merged_rows_saved += len(queries) - len(uniq)
         return uniq, inv
 
-    def _verify_merged(self, queries, k: int):
+    def _verify_merged(self, queries, k: int, parent: Optional[int] = None):
         """The round's merged verification KB call + shared-tier publish,
         behind the fault-tolerance shell (deadline + backoff retry — raises
         RetrievalFailed when the budget runs out; the round loop degrades).
         With async rounds this body runs on the worker thread — the publish
         is what lets slot t+1's overlapped speculation hit results verified
-        for slot t, and it is safe because the shared tier locks. The
-        monotonic span of the call is recorded either way (the round loop
-        intersects it with the overlapped stride to measure real
-        concurrency); reading it from the main thread is safe only after the
-        future resolves."""
-        t0 = time.monotonic()
-        try:
+        for slot t, and it is safe because the shared tier locks. Its
+        ``fleet.verify`` span is a child of ``parent`` (the submitting
+        round's span) when given."""
+        with trace.span("fleet.verify", parent=parent, rows=len(queries)):
             ids, scores = self._retrieve_guarded(queries, k)
             self._shared_put(queries, ids, scores)
-        finally:
-            t1 = time.monotonic()
-            self._verify_span = (t0, t1)
-            self.verify_wall += t1 - t0
         return ids, scores
 
     def _seed_slots(self, pairs) -> float:
@@ -293,25 +287,26 @@ class FleetServer(_ServerBase):
         cheapest degradation in the stack (``seed_failures`` on the result)."""
         if not pairs:
             return 0.0
-        q0 = [self._query_tokens(self.engine.tokens[b]) for b, _ in pairs]
-        uniq, inv = self._dedup(q0)
-        try:
-            ids_u, sc_u = self._verify_merged(uniq,
-                                              self.workload.verify_k(self.rcfg))
-        except RetrievalFailed:
-            self.seed_failures += 1
-            return (self.retriever.stats.model_latency(len(uniq))
-                    + self._take_ft_overhead())
-        ids0 = ids_u if inv is None else ids_u[inv]
-        sc0 = sc_u if inv is None else sc_u[inv]
-        for (b, st), row, srow in zip(pairs, ids0, sc0):
-            self.workload.seed_from_merged(self, st, row, srow)
-            # per-slot ledger: batched KB calls the slot PARTICIPATED in (so a
-            # slot's kb_calls is comparable to single-request RaLMSpec's
-            # 1 initial + 1 per round); FleetResult.kb_calls counts the actual
-            # shared calls, so the per-slot sum exceeds it by design.
-            st.res.kb_calls += 1
-            st.res.kb_queries += 1
+        with trace.span("fleet.seed", slots=len(pairs)):
+            q0 = [self._query_tokens(self.engine.tokens[b]) for b, _ in pairs]
+            uniq, inv = self._dedup(q0)
+            try:
+                ids_u, sc_u = self._verify_merged(uniq,
+                                                  self.workload.verify_k(self.rcfg))
+            except RetrievalFailed:
+                self.seed_failures += 1
+                return (self.retriever.stats.model_latency(len(uniq))
+                        + self._take_ft_overhead())
+            ids0 = ids_u if inv is None else ids_u[inv]
+            sc0 = sc_u if inv is None else sc_u[inv]
+            for (b, st), row, srow in zip(pairs, ids0, sc0):
+                self.workload.seed_from_merged(self, st, row, srow)
+                # per-slot ledger: batched KB calls the slot PARTICIPATED in (so a
+                # slot's kb_calls is comparable to single-request RaLMSpec's
+                # 1 initial + 1 per round); FleetResult.kb_calls counts the actual
+                # shared calls, so the per-slot sum exceeds it by design.
+                st.res.kb_calls += 1
+                st.res.kb_queries += 1
         return (self.retriever.stats.model_latency(len(uniq))
                 + self._take_ft_overhead())
 
@@ -403,6 +398,12 @@ class FleetServer(_ServerBase):
         Returns ``(analytic_seconds, n_participants)``; ``fleet`` only needs a
         ``rounds`` counter (FleetResult or ContinuousResult).
         """
+        with trace.span("fleet.round", slots=len(live)) as rsp:
+            return self._round(live, states, fleet, rsp)
+
+    def _round(self, live: Sequence[int], states, fleet, rsp) -> tuple:
+        """The body of :meth:`_run_round`; ``rsp`` is its ``fleet.round``
+        span (the async worker's ``fleet.verify`` names it as parent)."""
         eng, r, rcfg = self.engine, self.retriever, self.rcfg
         analytic = 0.0
         strides = {b: max(states[b].stride(rcfg), 1) for b in live}
@@ -410,21 +411,22 @@ class FleetServer(_ServerBase):
             states[b].begin_round()
 
         # ---- stage 1: lockstep speculation, one batched decode per sub-step -
-        while True:
-            doers = [b for b in live
-                     if len(states[b].specs) < strides[b]
-                     and not self._slot_done(b, states[b])]
-            if not doers:
-                break
-            steps, a_sub = self._lockstep_substep(doers, states)
-            # the sub-step runs batched: the fleet pays it once, every
-            # participant's OS^3 sees it as its per-step a
-            analytic += a_sub
-            for b in doers:
-                snap, q, spec, aux = steps[b]
-                states[b].record_step(snap, q, spec, a_sub, aux)
-                if states[b].os3:
-                    states[b].os3.record_speculation(a_sub)
+        with trace.span("fleet.speculate"):
+            while True:
+                doers = [b for b in live
+                         if len(states[b].specs) < strides[b]
+                         and not self._slot_done(b, states[b])]
+                if not doers:
+                    break
+                steps, a_sub = self._lockstep_substep(doers, states)
+                # the sub-step runs batched: the fleet pays it once, every
+                # participant's OS^3 sees it as its per-step a
+                analytic += a_sub
+                for b in doers:
+                    snap, q, spec, aux = steps[b]
+                    states[b].record_step(snap, q, spec, a_sub, aux)
+                    if states[b].os3:
+                        states[b].os3.record_speculation(a_sub)
 
         participants = [b for b in live if states[b].specs]
         if not participants:
@@ -444,6 +446,7 @@ class FleetServer(_ServerBase):
         # rows scatter back to slots below. The latency model sees the
         # deduplicated width — that's the saving.
         uniq, inv = self._dedup(all_queries)
+        rsp.set(rows=len(all_queries), unique=len(uniq))
 
         # adaptive overlap gate, the fleet form of the single path's rule:
         # only pipeline when the modeled verification latency is worth hiding
@@ -457,31 +460,21 @@ class FleetServer(_ServerBase):
             b_est = r.stats.model_latency(len(uniq))
             if b_est > rcfg.async_gate_ratio * a_est:
                 # ---- stage 2: overlap the call with round t+1's stride ------
-                self._verify_span = None
                 self._inflight = self._pool.submit(
-                    self._verify_merged, uniq, k)
-                t_ov0 = time.monotonic()
+                    self._verify_merged, uniq, k, rsp.id)
                 try:
-                    overlap, overlap_a = self._overlap_speculate(
-                        participants, states, strides, a_est, b_est,
-                        fut=self._inflight)
+                    with trace.span("fleet.overlap"):
+                        overlap, overlap_a = self._overlap_speculate(
+                            participants, states, strides, a_est, b_est,
+                            fut=self._inflight)
                 finally:
-                    t_ov1 = time.monotonic()
                     # clear the handle BEFORE joining: if the worker call
                     # raised, a still-set handle would poison _drain_inflight
                     # and close() with the same re-raise
                     fut, self._inflight = self._inflight, None
                 try:
-                    gt_u, sc_u = fut.result()
-                    # measured concurrency: the worker's KB-call span
-                    # (written before the future resolved — the join is the
-                    # happens-before edge) intersected with the overlapped
-                    # stride's span, both on the monotonic clock
-                    if self._verify_span is not None:
-                        v0, v1 = self._verify_span
-                        self.overlap_wall += t_ov1 - t_ov0
-                        self.overlap_measured += max(
-                            0.0, min(v1, t_ov1) - max(v0, t_ov0))
+                    with trace.span("fleet.join"):
+                        gt_u, sc_u = fut.result()
                 except Exception:
                     # worker crash recovery: the in-flight verification died
                     # (RetrievalFailed after its retries, or anything else the
@@ -521,6 +514,7 @@ class FleetServer(_ServerBase):
                     st.res.rounds += 1
                     st.res.spec_steps += n
                     st.res.strides.append(n)
+                _first_tokens(participants, states)
                 return analytic, len(participants)
         gt_all = gt_u if inv is None else gt_u[inv]
         sc_all = sc_u if inv is None else sc_u[inv]
@@ -540,44 +534,48 @@ class FleetServer(_ServerBase):
         rollbacks = []           # slots needing a correction stride
         corrections = {}         # slot -> workload correction payload
         off = 0
-        for b in participants:
-            st = states[b]
-            n = len(st.specs)
-            gt = gt_all[off:off + n]
-            sc = sc_all[off:off + n]
-            off += n
-            m, corr = self.workload.check_and_commit(self, st, gt, sc)
-            if st.os3:
-                # amortized share: the batched call serves every participant
-                st.os3.record_verification(b_model, n, m,
-                                           n_participants=len(participants))
-            st.res.rounds += 1
-            st.res.spec_steps += n
-            st.res.strides.append(n)
-            st.res.kb_calls += 1
-            st.res.kb_queries += n
-            if m < n:
-                st.res.mismatches += 1
-                if overlap.pop(b, None):
-                    # the overlapped stride speculated past a wrong step: the
-                    # restore below rewinds it along with steps m..n-1
-                    st.res.carry_invalidations += 1
-                eng.restore(b, st.snaps[m])
-                self.workload.apply_correction(self, b, st, corr)
-                rollbacks.append(b)
-                corrections[b] = corr
-            elif b in overlap:
-                st.carry = overlap.pop(b)
-                st.res.carry_steps += len(st.carry)
+        with trace.span("fleet.commit", slots=len(participants)) as csp:
+            for b in participants:
+                st = states[b]
+                n = len(st.specs)
+                gt = gt_all[off:off + n]
+                sc = sc_all[off:off + n]
+                off += n
+                m, corr = self.workload.check_and_commit(self, st, gt, sc)
                 if st.os3:
-                    for step in st.carry:
-                        st.os3.record_speculation(step[3])
+                    # amortized share: the batched call serves every participant
+                    st.os3.record_verification(b_model, n, m,
+                                               n_participants=len(participants))
+                st.res.rounds += 1
+                st.res.spec_steps += n
+                st.res.strides.append(n)
+                st.res.kb_calls += 1
+                st.res.kb_queries += n
+                if m < n:
+                    st.res.mismatches += 1
+                    if overlap.pop(b, None):
+                        # the overlapped stride speculated past a wrong step: the
+                        # restore below rewinds it along with steps m..n-1
+                        st.res.carry_invalidations += 1
+                    eng.restore(b, st.snaps[m])
+                    self.workload.apply_correction(self, b, st, corr)
+                    rollbacks.append(b)
+                    corrections[b] = corr
+                elif b in overlap:
+                    st.carry = overlap.pop(b)
+                    st.res.carry_steps += len(st.carry)
+                    if st.os3:
+                        for step in st.carry:
+                            st.os3.record_speculation(step[3])
+            csp.set(mismatches=len(rollbacks))
 
         # ---- corrections: ONE batched engine call for all rollbacks ---------
         if rollbacks:
-            tc = time.perf_counter()
-            self.workload.correction_stride(self, rollbacks, states, corrections)
-            analytic += time.perf_counter() - tc
+            with trace.span("fleet.correct", slots=len(rollbacks)):
+                tc = time.perf_counter()
+                self.workload.correction_stride(self, rollbacks, states, corrections)
+                analytic += time.perf_counter() - tc
+        _first_tokens(participants, states)
         return analytic, len(participants)
 
     def serve(self, prompts: Sequence[Sequence[int]],
@@ -596,7 +594,6 @@ class FleetServer(_ServerBase):
         m0, ms0 = self.merged_rows, self.merged_rows_saved
         r0e, r0o, r0f = r.stats.errors, r.stats.timeouts, r.stats.failed_calls
         sf0 = self.seed_failures
-        vw0, ow0, mo0 = self.verify_wall, self.overlap_wall, self.overlap_measured
         states = [self._new_request_state(
             rid=b, max_new=max_new[b] if max_new is not None else None)
             for b in range(B)]
@@ -604,9 +601,11 @@ class FleetServer(_ServerBase):
         t0 = time.perf_counter()
 
         for b, p in enumerate(prompts):
+            states[b].res.admitted_ns = time.time_ns()
             eng.start(b, list(p)[-rcfg.max_prompt_len:])
         analytic = self._seed_slots([(b, states[b]) for b in range(B)])
 
+        pending = set(range(B))                 # requests not finished yet
         while True:
             # NB: a slot with a pending carry is holding an UNVERIFIED
             # overlapped stride — it must stay live past budget/EOS until the
@@ -615,12 +614,17 @@ class FleetServer(_ServerBase):
             # single-request loop).
             live = [b for b in range(B)
                     if not self._slot_done(b, states[b]) or states[b].carry]
+            for b in sorted(pending.difference(live)):
+                self._finish(b, states[b])
+            pending.intersection_update(live)
             if not live:
                 break
             a, n_part = self._run_round(live, states, fleet)
             analytic += a
             if n_part == 0:
                 break
+        for b in sorted(pending):
+            self._finish(b, states[b])
 
         fleet.wall_time = time.perf_counter() - t0
         fleet.analytic_time = analytic
@@ -632,9 +636,6 @@ class FleetServer(_ServerBase):
         fleet.kb_timeouts = r.stats.timeouts - r0o
         fleet.kb_failures = r.stats.failed_calls - r0f
         fleet.seed_failures = self.seed_failures - sf0
-        fleet.verify_wall_s = self.verify_wall - vw0
-        fleet.overlap_wall_s = self.overlap_wall - ow0
-        fleet.measured_overlap_s = self.overlap_measured - mo0
         # per-slot time fields are the SHARED fleet timeline (lockstep rounds
         # finish together): don't sum them across slots — like kb_calls above,
         # summing overcounts by the concurrency factor. Aggregate via

@@ -39,6 +39,7 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.configs.base import RaLMConfig
 from repro_torch.core.knnlm import knn_interpolate, spatial_insert
 from repro_torch.core.ralmspec import first_mismatch
@@ -192,7 +193,8 @@ class KNNLMWorkload(Workload):
             ids, sc = states[b].cache.retrieve(q, rcfg.knn_k)
             vals = np.where(ids >= 0, kb.values[np.maximum(ids, 0)], -1)
             logits = eng.peek_logits(b)
-            tok = knn_interpolate(logits, vals, sc, rcfg.knn_lambda)
+            with trace.span("knn.interpolate", role="speculate"):
+                tok = knn_interpolate(logits, vals, sc, rcfg.knn_lambda)
             steps[b] = (snap, q, int(tok), logits)
             toks.append(int(tok))
         eng.advance(doers, toks)
@@ -210,8 +212,9 @@ class KNNLMWorkload(Workload):
         n = len(st.specs)
         m, corr = n, None
         for i in range(n):
-            gt_tok = knn_interpolate(st.aux[i], kb.values[gt_ids[i]],
-                                     gt_scores[i], rcfg.knn_lambda)
+            with trace.span("knn.interpolate", role="verify"):
+                gt_tok = knn_interpolate(st.aux[i], kb.values[gt_ids[i]],
+                                         gt_scores[i], rcfg.knn_lambda)
             if gt_tok != int(st.specs[i]):
                 m, corr = i, int(gt_tok)
                 break
