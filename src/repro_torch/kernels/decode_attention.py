@@ -53,6 +53,7 @@ MESH_RULES = (((Replicate(),) * 4, Replicate()),
               ((Shard(0),) * 4, Shard(0)),
               ((Shard(1), Shard(2), Shard(2), Replicate()), Shard(1)))
 _scratch: dict = {}    # device index -> (tickets, partials, their pointers, their sizes)
+_outgrown: list = []   # scratch a larger call replaced: a captured launch may still use it
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len):
@@ -114,9 +115,13 @@ def partials_size(B: int, H: int, W: int, n: int) -> int:
 def _scratch_for(device, n_tickets: int, n_partials: int):
     """The device's ticket counters (zeroed when made) and partials scratch,
     remade larger when a call needs more -> (tickets, partials, their data
-    pointers, their sizes)."""
+    pointers, their sizes). The scratch a remake replaces is kept: a launch
+    captured in a CUDA graph (``models.model.DecodeGraph``) holds its
+    pointers for as long as the graph replays."""
     s = _scratch.get(device.index)
     if s is None or s[4] < n_tickets or s[5] < n_partials:
+        if s is not None:
+            _outgrown.append(s)
         n_tickets, n_partials = max(n_tickets, MIN_SCRATCH), max(n_partials, MIN_SCRATCH)
         tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
         part = torch.empty(n_partials, dtype=torch.float32, device=device)

@@ -316,7 +316,7 @@ def decode_positions(position, batch: int, device) -> torch.Tensor:
 
 
 def apply_self_attention_decode(p: dict, cfg, x, position, k_cache, v_cache,
-                                cache_len, write_idx, rope=None) -> tuple:
+                                cache_len, write_idx, rope=None, inplace=False) -> tuple:
     """One-token decode: project, rope at ``position`` (or the step's
     precomputed ``rope`` tables), write the ring slot, attend through the
     decode kernel. Returns (out, new_k_cache, new_v_cache).
@@ -332,7 +332,10 @@ def apply_self_attention_decode(p: dict, cfg, x, position, k_cache, v_cache,
     the window: an indexed write into a split window would make the
     partitioner gather the whole cache (the reference measured 56 GB a step
     on kimi x decode_32k), and DTensor has no indexed write into a DTensor
-    at all. Elsewhere it is the indexed write into a clone."""
+    at all. Elsewhere it is the indexed write into a clone, or with
+    ``inplace`` into ``k_cache``/``v_cache`` themselves: the static buffers
+    of a captured decode step (``models.model.DecodeGraph``), which owns
+    them."""
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x, x)                       # S == 1
     if rope is None:
@@ -344,14 +347,15 @@ def apply_self_attention_decode(p: dict, cfg, x, position, k_cache, v_cache,
         slot = torch.arange(k_cache.shape[1], device=x.device)[None, :, None, None] == idx
         k_cache = torch.where(slot, k.to(k_cache.dtype), k_cache)
         v_cache = torch.where(slot, v.to(v_cache.dtype), v_cache)
-    elif isinstance(write_idx, torch.Tensor):
-        k_cache, v_cache = k_cache.clone(), v_cache.clone()
-        rows = torch.arange(B, device=x.device)
-        k_cache[rows, write_idx.long()] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, write_idx.long()] = v[:, 0].to(v_cache.dtype)
     else:
-        k_cache, v_cache = k_cache.clone(), v_cache.clone()
-        k_cache[:, write_idx] = k[:, 0].to(k_cache.dtype)
-        v_cache[:, write_idx] = v[:, 0].to(v_cache.dtype)
+        if not inplace:
+            k_cache, v_cache = k_cache.clone(), v_cache.clone()
+        if isinstance(write_idx, torch.Tensor):
+            rows = torch.arange(B, device=x.device)
+            k_cache[rows, write_idx.long()] = k[:, 0].to(k_cache.dtype)
+            v_cache[rows, write_idx.long()] = v[:, 0].to(v_cache.dtype)
+        else:
+            k_cache[:, write_idx] = k[:, 0].to(k_cache.dtype)
+            v_cache[:, write_idx] = v[:, 0].to(v_cache.dtype)
     out = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, cache_len)
     return out.reshape(B, 1, -1) @ p["wo"], k_cache, v_cache

@@ -35,6 +35,8 @@ KV, hd), the encoder memory's K/V that prefill projects once. Every method
 returns new tensors and never writes into the state it was given, so a
 state held by an engine snapshot stays valid; no decode step writes the
 cross K/V, so a step hands the same tensors on and snapshots share them.
+On the card ``decode_step`` replays a CUDA graph of the step
+(``DecodeGraph``) under the same contract.
 
 The stacked decode state has the reference's layout: ``{"prefix": tuple of
 layer states, "stages": tuple}``, stage j holding the states of layers
@@ -45,7 +47,8 @@ as the reference's ``decode_step_stacked`` does (``exact_moe=False``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import weakref
+from dataclasses import dataclass, field
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -54,14 +57,20 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import mesh_ops as M
 from repro_torch.distributed.sharding import Spec
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 # the families whose serving path this module ports: every family of the
 # registry
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# the families whose decode step replays from a CUDA graph on the card
+# (``DecodeGraph``): those whose graphed step is tested bit-equal to the eager
+# one there (tests/test_torch_gpu.py); a family added later stays eager until
+# it is tested and listed
+GRAPH_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 class _Recurrent(NamedTuple):
@@ -154,9 +163,77 @@ def _final_state(mp: dict, cfg: ModelConfig, kind: str, h: torch.Tensor) -> dict
     return _RECURRENT[kind].final_state(mp, cfg, h)
 
 
+class DecodeGraph:
+    """One decode step captured in a CUDA graph, for one params, batch,
+    window and device: what ``Model.decode_step`` replays after the first
+    step of that key, which runs eagerly and captures it.
+
+    Its static inputs are the token (B,), the positions (B,) and a copy of
+    every state leaf; the captured step updates the state copy in place (the
+    ring write goes straight into the static K/V, a recurrent state is
+    copied back into its buffer at the step's end) and leaves the logits
+    (B, V) in a static output. The kernels and their order are the eager
+    step's, so a replay's logits and state are bit-equal to it.
+
+    A call keeps ``decode_step`` a pure function: it copies the given state
+    into the static buffers, but for each leaf that is the very tensor the
+    last replay returned, unwritten since (its ``_version``), so a straight
+    run of steps copies nothing in and a restore, a prefill's scatter or a
+    masked commit does; and it returns a clone of the logits and of every
+    leaf the step writes, handing on a leaf it does not write (an audio
+    decoder's cross K/V) as the caller gave it. ``replays`` and ``copies``
+    count replays and the calls that copied a leaf in; ``DA.launches``
+    counts each replay's B2 launches, as an eager step's."""
+
+    def __init__(self, model: "Model", params, state: list, token: torch.Tensor):
+        dev, B = token.device, token.shape[0]
+        self.params = params                  # the weights the graph reads stay alive
+        self.replays = self.copies = 0
+        self._token = torch.zeros((B,), dtype=torch.long, device=dev)
+        self._pos = torch.zeros((B,), dtype=torch.long, device=dev)
+        self._state = tree_map(torch.clone, state)
+        self._leaves = tree_leaves(self._state)
+        versions = [t._version for t in self._leaves]
+        launches = DA.launches
+        self._graph = torch.cuda.CUDAGraph()
+        # thread-local: the verification worker may launch meanwhile
+        with torch.cuda.graph(self._graph, capture_error_mode="thread_local"):
+            self._logits, out = model._decode(params, self._state, self._token, self._pos,
+                                              inplace=True)
+            for buf, new in zip(self._leaves, tree_leaves(out)):
+                if new is not buf:
+                    buf.copy_(new)
+        self._b2, DA.launches = DA.launches - launches, launches      # captured, not run
+        self._written = [t._version != v for t, v in zip(self._leaves, versions)]
+        self._last: list = []                 # (weakref, _version) of each leaf returned
+
+    def __call__(self, state: list, token: torch.Tensor, pos):
+        leaves = tree_leaves(state)
+        last, copied = self._last, False
+        for i, (buf, leaf) in enumerate(zip(self._leaves, leaves)):
+            if not (last and last[i][0]() is leaf and leaf._version == last[i][1]):
+                buf.copy_(leaf)
+                copied = True
+        self.copies += copied
+        self._token.copy_(token)
+        if isinstance(pos, torch.Tensor):
+            self._pos.copy_(pos)
+        else:
+            self._pos.fill_(int(pos))
+        self._graph.replay()
+        self.replays += 1
+        DA.launches += self._b2
+        out = [buf.clone() if w else leaf
+               for buf, leaf, w in zip(self._leaves, leaves, self._written)]
+        self._last = [(weakref.ref(t), t._version) for t in out]
+        return self._logits.clone(), tree_unflatten(state, out)
+
+
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
+    # (batch, window, device) -> the DecodeGraph of the params last stepped there
+    _graphs: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         if self.cfg.family not in PORTED_FAMILIES:
@@ -331,12 +408,52 @@ class Model:
     def decode_step(self, params, state: list, token: torch.Tensor, pos):
         """token (B,) ints; pos an int shared by the batch, or per-slot (B,)
         positions. -> (logits (B, V), new state). Recurrent layers step
-        their state."""
+        their state.
+
+        On a CUDA device, with grad off, no DTensor and a family of
+        :data:`GRAPH_FAMILIES`, the step replays from a CUDA graph
+        (:class:`DecodeGraph`), one for each batch, window and device: the
+        first step there runs eagerly and then captures it (an engine's
+        ``warm`` makes that step), and so does a step with other params,
+        whose graph replaces the one before. Elsewhere every step runs
+        eagerly."""
+        key = self._graph_key(state, token, pos)
+        graph = self._graphs.get(key) if key is not None else None
+        if graph is not None and graph.params is params:
+            return graph(state, token, pos)
+        out = self._decode(params, state, token, pos)
+        if key is not None and not M.is_distributed(*tree_leaves(params)):
+            self._graphs[key] = DecodeGraph(self, params, state, token)
+        return out
+
+    def decode_graph(self, params, state: list) -> Optional[DecodeGraph]:
+        """The graph a decode step over ``params`` and ``state`` replays,
+        once one is captured (its counters: :class:`DecodeGraph`)."""
+        g = self._graphs.get(self._state_key(state))
+        return g if g is not None and g.params is params else None
+
+    def _graph_key(self, state, token, pos):
+        """The key of the step's graph, or None where it stays eager."""
+        if (self.cfg.family not in GRAPH_FAMILIES or token.device.type != "cuda"
+                or torch.is_grad_enabled() or torch.is_inference_mode_enabled()
+                or M.is_distributed(token, pos, *tree_leaves(state[0]))):
+            return None
+        return self._state_key(state)
+
+    @staticmethod
+    def _state_key(state):
+        first = tree_leaves(state[0])[0]
+        window = next((st["k"].shape[1] for st in state if "k" in st), 0)
+        return first.shape[0], window, first.device
+
+    def _decode(self, params, state: list, token: torch.Tensor, pos, inplace: bool = False):
+        """The eager decode step (``inplace``: the ring writes go into the
+        given K/V, as :class:`DecodeGraph` captures it)."""
         x = self._decode_embed(params, token, pos)
         shared: dict = {}
         new_state = []
         for bp, sig, st in zip(params["layers"], signatures(self.cfg), state):
-            x, st = self._decode_block(bp, sig, x, st, pos, shared)
+            x, st = self._decode_block(bp, sig, x, st, pos, shared, inplace=inplace)
             new_state.append(st)
         return self._decode_logits(params, x), new_state
 
@@ -410,7 +527,8 @@ class Model:
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return self._unembed(params, x)[:, 0]
 
-    def _decode_block(self, bp, sig, x, st, pos, shared: dict, exact_moe: bool = True):
+    def _decode_block(self, bp, sig, x, st, pos, shared: dict, exact_moe: bool = True,
+                      inplace: bool = False):
         """One layer of a decode step (the reference's ``_apply_block_decode``)
         -> (x, the layer's new state). ``shared`` holds the step's ring
         (write_idx, cache_len) and rope tables, made at its first attention
@@ -428,7 +546,7 @@ class Model:
             write_idx, cache_len = shared["ring"]
             h, k_new, v_new = L.apply_self_attention_decode(
                 bp["mixer"], cfg, h, pos, st["k"], st["v"], cache_len, write_idx,
-                rope=shared["rope"])
+                rope=shared["rope"], inplace=inplace)
             st = dict(st, k=k_new, v=v_new)
         else:
             h, ssm = _RECURRENT[sig[0]].step(bp["mixer"], cfg, h, st["ssm"])

@@ -18,12 +18,14 @@ engine would produce for the same prompt/doc schedule.
     and restore writes back only that slot's row — so a snapshot taken before
     an overlapped step can be restored a ROUND later, after siblings advanced
     or rolled back, and still rewinds exactly one slot to exactly that step.
-    The price is a copy of the bundle per decode step, scatter and restore;
-    PERF.md records what it costs on the card. A leaf that a step hands on
-    as it is (an audio decoder's cross K/V) is neither copied by a commit
-    nor by a restore that finds the same tensor.
+    The price is a copy of the bundle per decode step (on the card, the
+    clone of a graph replay's output: ``Model.decode_step``), scatter and
+    restore; PERF.md records what it costs on the card. A leaf that a step
+    hands on as it is (an audio decoder's cross K/V) is neither copied by a
+    commit nor by a restore that finds the same tensor.
   * slots leave a lockstep ``gen`` when they hit EOS or their own budget; a
-    masked merge commits each slot's state as of its *own* last step.
+    masked merge commits each slot's state as of its *own* last step (a
+    merge over every slot is the stepped bundle itself).
   * slot lifecycle: ``admit(slot, prompt)`` prefills into a free slot,
     ``retire(slot)`` frees it again; ``gen``/``advance``/``snapshot``/
     ``restore`` operate only on active slots. The continuous scheduler
@@ -88,9 +90,11 @@ class BatchedServeEngine:
     def warm(self, lengths: Sequence[int]) -> None:
         """One per-slot prefill at each context length in ``lengths`` and one
         batched decode step over the live bundle, as the reference's ``warm``:
-        a timed run that follows pays for no kernel build and no allocator
-        growth. Nothing is scattered or committed, so every slot, snapshot and
-        stat stays as it was."""
+        a timed run that follows pays for no kernel build, no allocator growth
+        and, on the card, no capture of the decode step's CUDA graph (the
+        first step of a key captures it: ``Model.decode_step``). Nothing is
+        scattered or committed, so every slot, snapshot and stat stays as it
+        was."""
         with torch.no_grad():
             for n in sorted(set(int(x) for x in lengths)):
                 toks = torch.zeros((1, n), dtype=torch.long, device=self.device)
@@ -159,11 +163,21 @@ class BatchedServeEngine:
         self._prefill_slot(slot)
 
     # ---- generation -------------------------------------------------------------------
-    def _decode(self, state, tok_vec: np.ndarray, pos):
+    def _decode(self, state, tok_vec: np.ndarray, pos, span=trace.OFF):
+        """One lockstep step. While ``span`` (the step's ``engine.dispatch``)
+        records, it gets ``graph`` 1 where the step replayed a CUDA graph and
+        ``copied`` 1 where that replay copied state in (``DecodeGraph``)."""
+        on = span is not trace.OFF
+        g = self.model.decode_graph(self.params, state) if on else None
+        r0, c0 = (g.replays, g.copies) if g else (0, 0)
         with torch.no_grad():
-            return self.model.decode_step(
+            out = self.model.decode_step(
                 self.params, state, torch.as_tensor(tok_vec, device=self.device),
                 pos)
+        if on:              # a graph made by this call captured it: the step ran eagerly
+            r1, c1 = (g.replays, g.copies) if g else (0, 0)
+            span.set(graph=int(r1 > r0), copied=int(c1 > c0))
+        return out
 
     def _mask(self, slots) -> torch.Tensor:
         mask = np.zeros((self.n_slots,), bool)
@@ -206,8 +220,8 @@ class BatchedServeEngine:
                     live = [b for b in live if b not in eos_exits]
                     if not live:
                         break
-                with trace.span("engine.dispatch", live=len(live)):
-                    logits2, state2 = self._decode(state, tok_vec, pos)
+                with trace.span("engine.dispatch", live=len(live)) as sp:
+                    logits2, state2 = self._decode(state, tok_vec, pos, sp)
                     pos2 = pos + self._mask(live).to(torch.int32)
                 current = (state2, pos2, logits2)
                 if budget_exits:
@@ -222,6 +236,13 @@ class BatchedServeEngine:
         return [out[int(b)] for b in slots]
 
     def _commit_bundle(self, current, committed, slot_list):
+        """``current``'s rows for the slots in ``slot_list``, ``committed``'s
+        for the others. Over every slot that is ``current`` itself: a
+        ``where`` over an all-true mask would copy it bit for bit, and the
+        state a graphed step returned would no longer be the one its graph
+        holds, so the next step would copy it back in (``DecodeGraph``)."""
+        if len(set(slot_list)) == self.n_slots:
+            return current
         mask = self._mask(slot_list)
         return tree_map(
             lambda n, c: c if n is c else
@@ -255,8 +276,8 @@ class BatchedServeEngine:
             self.tokens[b].append(t)
             tok_vec[b] = t
         with trace.span("engine.decode", slots=len(slots)):
-            with trace.span("engine.dispatch", live=len(slots)):
-                logits2, state2 = self._decode(state, tok_vec, pos)
+            with trace.span("engine.dispatch", live=len(slots)) as sp:
+                logits2, state2 = self._decode(state, tok_vec, pos, sp)
                 pos2 = pos + self._mask(slots).to(torch.int32)
             with trace.span("engine.commit", slots=len(slots)):
                 self._set_bundle(self._commit_bundle((state2, pos2, logits2), committed,

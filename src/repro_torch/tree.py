@@ -36,15 +36,18 @@ def tree_leaves(tree, is_leaf: Optional[Callable] = None) -> list:
 
 def tree_unflatten(like, leaves):
     """A tree shaped like ``like`` holding ``leaves`` (in ``tree_leaves`` order)."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return _rebuild(t, (build(v) for v in t))
-        return next(it)
-    return build(like)
+
+def _unflatten(t, it):
+    # a module-level function, not a closure that calls itself: such a closure
+    # is a reference cycle that would hold ``leaves`` (a decode step's state on
+    # the card) until the cyclic collector runs
+    if isinstance(t, dict):
+        return {k: _unflatten(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return _rebuild(t, (_unflatten(v, it) for v in t))
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest):

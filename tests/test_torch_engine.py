@@ -16,12 +16,14 @@ from repro.configs import get_config, reduced
 from repro.models.model import Model as RefModel
 from repro.serving.batched import BatchedServeEngine as RefBatched
 from repro.serving.engine import ServeEngine as RefEngine
+from repro_torch import trace
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.models.convert import params_from_reference
 from repro_torch.models.model import Model
 from repro_torch.serving.batched import BatchedServeEngine
 from repro_torch.serving.engine import ServeEngine
+from repro_torch.tree import tree_leaves
 
 # six xdist workers share the host's cores: one torch thread each
 torch.set_num_threads(1)
@@ -148,3 +150,82 @@ def test_eos_and_budget_exits_match_reference(setup):
         [r_eng.finished(b) for b in range(3)]
     # after the exits every slot resumes from its OWN committed state
     assert t_eng.gen([1, 2], [3, 3]) == r_eng.gen([1, 2], [3, 3])
+
+
+def _started(model, params, prompts, docs):
+    eng = BatchedServeEngine(model, params, 3, cache_window=W)
+    for b, p in enumerate(prompts):
+        eng.start(b, p, docs[b])
+    return eng
+
+
+def test_decode_step_on_the_cpu_never_captures(setup):
+    """No CUDA graph off the card: the model keeps none, and every dispatch
+    span of warm-up, gen and advance reads graph 0 and copied 0."""
+    _, _, model, params, prompts, docs = setup
+    eng = BatchedServeEngine(model, params, 3, cache_window=W)
+    trace.clear()
+    with trace.recording():
+        eng.warm([40])
+        for b, p in enumerate(prompts):
+            eng.start(b, p, docs[b])
+        eng.gen([0, 1, 2], [4, 6, 5])
+        eng.advance([0, 2], [7, 8])
+        eng.advance([0, 1, 2], [5, 6, 7])
+    steps = [s.attrs for s in trace.spans() if s.name == "engine.dispatch"]
+    trace.clear()
+    assert len(steps) == 6 + 2
+    assert all((a["graph"], a["copied"]) == (0, 0) for a in steps)
+    with torch.no_grad():
+        model.decode_step(params, eng._state, torch.tensor([1, 2, 3]), eng._pos)
+    assert model.decode_graph(params, eng._state) is None and model._graphs == {}
+
+
+def _stepped(eng, params, model):
+    committed = eng._bundle()
+    with torch.no_grad():
+        logits, state = model.decode_step(params, committed[0], torch.tensor([5, 6, 7]),
+                                          committed[1])
+    return (state, committed[1] + 1, logits), committed
+
+
+@pytest.mark.parametrize("slots", [[0, 1, 2], [2, 0, 1, 1]])
+def test_commit_over_every_slot_is_the_stepped_bundle(setup, slots):
+    _, _, model, params, prompts, docs = setup
+    eng = _started(model, params, prompts, docs)
+    current, committed = _stepped(eng, params, model)
+    assert eng._commit_bundle(current, committed, slots) is current
+
+
+@pytest.mark.parametrize("slots", [[0, 2], [1]])
+def test_commit_over_some_slots_merges_row_by_row(setup, slots):
+    _, _, model, params, prompts, docs = setup
+    eng = _started(model, params, prompts, docs)
+    current, committed = _stepped(eng, params, model)
+    merged = eng._commit_bundle(current, committed, slots)
+    rest = [b for b in range(3) if b not in slots]
+    for new, old, got in zip(tree_leaves(current), tree_leaves(committed),
+                             tree_leaves(merged)):
+        assert got is not new and got is not old
+        assert torch.equal(got[slots], new[slots]) and torch.equal(got[rest], old[rest])
+
+
+def test_advance_over_every_slot_keeps_snapshots(setup):
+    """Three ``advance`` steps over every slot commit the stepped bundles
+    as they are; the bundle a snapshot holds is never written, and each
+    restore rewinds its slot to its logits and position."""
+    _, _, model, params, prompts, docs = setup
+    eng = _started(model, params, prompts, docs)
+    snaps = {b: eng.snapshot(b) for b in range(3)}
+    before = {b: eng.peek_logits(b).copy() for b in range(3)}
+    kept = [t.clone() for t in tree_leaves(snaps[0][2])]
+    pos0 = eng._pos.clone()
+    for step in range(3):
+        eng.advance([0, 1, 2], [5 + step, 6, 7])
+    assert torch.equal(eng._pos, pos0 + 3)
+    assert all(torch.equal(a, b) for a, b in zip(kept, tree_leaves(snaps[0][2])))
+    for b in range(3):
+        assert not np.array_equal(eng.peek_logits(b), before[b])
+        eng.restore(b, snaps[b])
+        assert np.array_equal(eng.peek_logits(b), before[b])
+    assert torch.equal(eng._pos, pos0)

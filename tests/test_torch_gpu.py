@@ -675,6 +675,116 @@ def test_knnlm_fleet_on_cuda_token_matches_knnlmseq(cuda):
         assert [r.tokens for r in fr.results] == want, (sched, rounds)
         assert DT.launches - calls == fr.kb_calls
         assert fr.kb_calls == fr.rounds + (fr.seed_calls if sched == "continuous" else 1)
+    # the decode steps replayed their CUDA graphs: KNNLMSeq's (B = 1) and the fleets' (B = 3)
+    replays = {key[0]: g.replays for key, g in st.model._graphs.items()}
+    assert replays.get(1, 0) > 0 and replays.get(3, 0) > 0, replays
+
+
+# ---------------------------------------------------------------------------------
+# the decode step replayed from a CUDA graph (models.model.DecodeGraph)
+# ---------------------------------------------------------------------------------
+GRAPH_ARCHS = {"dense": "qwen3-4b", "moe": "qwen2-moe-a2.7b", "ssm": "xlstm-350m",
+               "hybrid": "jamba-v0.1-52b", "vlm": "paligemma-3b", "audio": "whisper-base"}
+
+
+def _graphed_vs_eager(cuda, arch, B, pos_of, steps=20, W=64):
+    """``steps`` decode steps of a reduced ``arch`` from a prefilled W = 64
+    ring, eager (grad on) and graphed (grad off) side by side from the same
+    state, tokens and positions (``pos_of(i)``). Where the family engages,
+    every replay's logits and state equal the eager step's byte for byte,
+    launch B2 once a layer, and leave the state they were given as it was;
+    elsewhere no graph is made. -> the graph, or None."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as MM
+    from repro_torch.tree import tree_leaves
+    cfg = reduced(get_config(arch), layers=3, d_model=256)
+    model = MM.build_model(cfg)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    params = model.init(g)
+    toks = torch.randint(2, cfg.vocab_size, (B, 60), generator=g, device=cuda)
+    extra = None
+    if cfg.family == "audio":
+        extra = {"frames": torch.randn((B, cfg.encoder_frames, cfg.d_model), generator=g,
+                                       device=cuda)}
+    tok = toks[:, -1]
+    with torch.no_grad():
+        _, state, _ = model.prefill(params, toks, extra=extra, window_cache=W)
+        model.decode_step(params, state, tok, pos_of(0))        # eager: captures the graph
+    graph = model.decode_graph(params, state)
+    if cfg.family not in MM.GRAPH_FAMILIES:
+        assert graph is None and not model._graphs
+        return None
+    n_attn = cfg.layer_kinds().count("attn")
+    eager = graphed = state
+    for i in range(steps):
+        with torch.enable_grad():
+            e_logits, eager = model.decode_step(params, eager, tok, pos_of(i))
+        given = graphed
+        kept = [t.clone() for t in tree_leaves(given)]
+        n0 = DA.launches
+        with torch.no_grad():
+            g_logits, graphed = model.decode_step(params, given, tok, pos_of(i))
+        assert DA.launches - n0 == n_attn
+        assert all(torch.equal(a, b) for a, b in zip(kept, tree_leaves(given)))
+        assert torch.equal(g_logits, e_logits), (arch, i)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(graphed), tree_leaves(eager)))
+        tok = e_logits.argmax(-1)
+    assert (graph.replays, graph.copies) == (steps, 1)      # the prefill's state, then none
+    return graph
+
+
+@pytest.mark.parametrize("family", sorted(GRAPH_ARCHS))
+def test_graphed_decode_step_is_bit_equal_to_eager(cuda, family):
+    """Per-slot positions past the ring (W = 64), 20 steps: see
+    ``_graphed_vs_eager``; the dense family must engage."""
+    base = torch.tensor([60, 75, 130, 64], dtype=torch.int32, device=cuda)
+    graph = _graphed_vs_eager(cuda, GRAPH_ARCHS[family], 4, lambda i: base + i)
+    assert graph is not None or family != "dense"
+
+
+def test_graphed_decode_step_at_a_scalar_position(cuda):
+    """One slot at an int position past the ring (the single engine's
+    call): the graph takes the position as a (1,) tensor, bit-equal."""
+    assert _graphed_vs_eager(cuda, GRAPH_ARCHS["dense"], 1, lambda i: 70 + i) is not None
+
+
+def test_graphed_engine_restores_a_slot_as_the_eager_engine(cuda, monkeypatch):
+    """A 4-slot engine warmed (the graph captured), four prefills, three
+    ``advance`` steps over every slot, one slot restored to its snapshot,
+    then a 6-step ``gen``: the tokens and logits of the eager engine, and
+    the dispatch spans show one copy-in after the prefills, one after the
+    restore and none in the straight steps."""
+    from repro_torch import trace
+    from repro_torch.models import model as MM
+    from repro_torch.serving.batched import BatchedServeEngine
+    st = _knn_stack(cuda)
+    prompts = [st.stream[i * 97:i * 97 + 40].tolist() for i in range(4)]
+
+    def serve():
+        eng = BatchedServeEngine(st.model, st.params, 4, cache_window=64)
+        eng.warm([40])
+        for b, p in enumerate(prompts):
+            eng.start(b, p)
+        snaps = {b: eng.snapshot(b) for b in range(4)}
+        trace.clear()
+        with trace.recording():
+            for step in range(3):
+                eng.advance(range(4), [5 + step, 6, 7, 8])
+            eng.restore(1, snaps[1])
+            eng.gen(range(4), [6] * 4)
+        spans = [(s.attrs["graph"], s.attrs["copied"]) for s in trace.spans()
+                 if s.name == "engine.dispatch"]
+        trace.clear()
+        return [list(t) for t in eng.tokens], [eng.peek_logits(b) for b in range(4)], spans
+
+    with monkeypatch.context() as m:
+        m.setattr(MM, "GRAPH_FAMILIES", ())
+        e_tokens, e_logits, e_spans = serve()
+    assert not st.model._graphs and e_spans == [(0, 0)] * 9
+    g_tokens, g_logits, g_spans = serve()
+    assert g_tokens == e_tokens
+    assert all(np.array_equal(a, b) for a, b in zip(g_logits, e_logits))
+    assert g_spans == [(1, 1), (1, 0), (1, 0), (1, 1)] + [(1, 0)] * 5
 
 
 # ---------------------------------------------------------------------------------
