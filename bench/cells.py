@@ -6,6 +6,11 @@ is there:
 
   * ``configs/<config>.json``     the configuration as it is run
                                   (``BENCHMARK.json`` ``configs[].file``);
+  * ``reference/<m>.py``          the model the configuration's
+                                  ``"reference"`` key names (``model``, the
+                                  dense decoder, where it names none): its
+                                  ``param_layout``, ``forward``,
+                                  ``token_flops`` and ``attention_layers``;
   * ``traffic/<mix>.json``        the mix's parameters, naming its generator
                                   module ``traffic/<generator>.py``;
   * ``metrics/<metric>.py``       one reader per per-layer metric;
@@ -16,11 +21,13 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import re
 from dataclasses import dataclass, field
 from pathlib import Path
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
+MODULE_NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")    # a file name, no path
 
 
 @dataclass
@@ -28,6 +35,7 @@ class Cell:
     name: str
     chips: int
     config: dict
+    model: object
     mix: dict
     generator: object
     limits: dict
@@ -43,6 +51,22 @@ def load_module(path: Path, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def model(cfg: dict, root: Path = ROOT):
+    """The model module of a configuration, ``bench/reference/<m>.py`` of
+    ``root``'s checkout, ``<m>`` its ``"reference"`` key: ``model``, the
+    dense decoder, where the key is absent, which only a dense family may
+    leave it."""
+    name = cfg.get("reference")
+    if name is None:
+        if cfg["family"] != "dense":
+            raise ValueError(f"{cfg['name']}: family {cfg['family']!r} needs a \"reference\" "
+                             "key naming its model module bench/reference/<m>.py")
+        name = "model"
+    if not MODULE_NAME.fullmatch(name):
+        raise ValueError(f"{cfg['name']}: \"reference\" {name!r} is not a module name")
+    return load_module(root / "bench" / "reference" / f"{name}.py", f"bench_reference_{name}")
 
 
 def _for(entry: dict, cell: str) -> bool:
@@ -67,6 +91,7 @@ def find(name: str, root: Path = ROOT) -> Cell:
     readers = [(m, load_module(bdir / "metrics" / f"{m['name']}.py",
                                f"bench_metric_{m['name'].replace('.', '_')}"))
                for m in bench["per_layer"] if _for(m, name)]
-    return Cell(name=name, chips=int(w["chips"]), config=config, mix=mix, generator=gen,
+    return Cell(name=name, chips=int(w["chips"]), config=config, model=model(config, root),
+                mix=mix, generator=gen,
                 limits=limits, end_to_end=[m for m in bench["end_to_end"] if _for(m, name)],
                 per_layer=readers)

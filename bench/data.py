@@ -14,6 +14,8 @@ import math
 import numpy as np
 import torch
 
+from bench import cells
+
 _TAGS = {"params": 1, "table": 2, "corpus": 3, "heldout": 4}
 
 
@@ -24,49 +26,43 @@ def generator(seed: int, part: str, device) -> torch.Generator:
     return g
 
 
-def param_layout(cfg: dict) -> list:
-    """(path, shape, kind, scale) of every leaf of a dense decoder, in the
-    port's parameter layout: ``embed``, ``final_norm``, ``unembed`` and
-    ``layers[i]`` {norm1, mixer {wq, wk, wv, wo[, bq, bk, bv][, q_norm,
-    k_norm]}, norm2, ffn {w_gate, w_up, w_down}}. Matrices are (d_in,
-    d_out)."""
-    if cfg["family"] != "dense":
-        raise ValueError(f"{cfg['name']}: the benchmark makes dense decoders only")
-    d, V = cfg["d_model"], cfg["vocab_size"]
-    H, KV, hd, ff = cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"], cfg["d_ff"]
-    out = [(("embed",), (V, d), "w", d ** -0.5), (("final_norm",), (d,), "norm", 0.0)]
-    if not cfg["tie_embeddings"]:
-        out.append((("unembed",), (d, V), "w", d ** -0.5))
-    for i in range(cfg["num_layers"]):
-        p = ("layers", i)
-        out += [(p + ("norm1",), (d,), "norm", 0.0),
-                (p + ("mixer", "wq"), (d, H * hd), "w", 1 / math.sqrt(d)),
-                (p + ("mixer", "wk"), (d, KV * hd), "w", 1 / math.sqrt(d)),
-                (p + ("mixer", "wv"), (d, KV * hd), "w", 1 / math.sqrt(d)),
-                (p + ("mixer", "wo"), (H * hd, d), "w", 1 / math.sqrt(H * hd))]
-        if cfg["qkv_bias"]:
-            out += [(p + ("mixer", "bq"), (H * hd,), "bias", 0.0),
-                    (p + ("mixer", "bk"), (KV * hd,), "bias", 0.0),
-                    (p + ("mixer", "bv"), (KV * hd,), "bias", 0.0)]
-        if cfg["qk_norm"]:
-            out += [(p + ("mixer", "q_norm"), (hd,), "norm", 0.0),
-                    (p + ("mixer", "k_norm"), (hd,), "norm", 0.0)]
-        out += [(p + ("norm2",), (d,), "norm", 0.0),
-                (p + ("ffn", "w_gate"), (d, ff), "w", 1 / math.sqrt(d)),
-                (p + ("ffn", "w_up"), (d, ff), "w", 1 / math.sqrt(d)),
-                (p + ("ffn", "w_down"), (ff, d), "w", 1 / math.sqrt(ff))]
-    return out
+def param_layout(cfg: dict, model=None) -> list:
+    """(path, shape, kind, scale) of every leaf, in draw order, in the port's
+    parameter layout: the configuration's model module's (``model``, or
+    ``bench.cells.model``'s)."""
+    return (model or cells.model(cfg)).param_layout(cfg)
 
 
-def make_params(cfg: dict, seed: int, device) -> dict:
-    """All weights in one normal draw on ``device``, cut into the leaves:
-    matrices z times their init scale, norms 1 + 0.1 z, biases 0.02 z."""
-    layout = param_layout(cfg)
+def nest(leaves) -> dict:
+    """The parameter tree of (path, leaf) pairs: a path's keys are dict keys,
+    its ints list indices."""
+    tree: dict = {}
+    for path, leaf in leaves:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: lists(v) for k, v in node.items()}
+        if out and all(isinstance(k, int) for k in out):
+            return [out[i] for i in range(len(out))]
+        return out
+
+    return lists(tree)
+
+
+def make_params(cfg: dict, seed: int, device, model=None) -> dict:
+    """All weights in one normal draw on ``device``, cut into the leaves of
+    the model module's layout, in its order: matrices z times their init
+    scale, norms 1 + 0.1 z, biases 0.02 z."""
+    layout = param_layout(cfg, model)
     total = sum(math.prod(shape) for _, shape, _, _ in layout)
     flat = torch.empty((total,), dtype=torch.float32, device=device)
     flat.normal_(generator=generator(seed, "params", device))
-    params: dict = {"layers": [dict(mixer={}, ffn={}) for _ in range(cfg["num_layers"])]}
-    off = 0
+    leaves, off = [], 0
     for path, shape, kind, scale in layout:
         n = math.prod(shape)
         leaf = flat[off:off + n].view(shape)
@@ -77,11 +73,8 @@ def make_params(cfg: dict, seed: int, device) -> dict:
             leaf.mul_(0.1).add_(1.0)
         else:
             leaf.mul_(0.02)
-        node = params
-        for key in path[:-1]:
-            node = node[key]
-        node[path[-1]] = leaf
-    return params
+        leaves.append((path, leaf))
+    return nest(leaves)
 
 
 def make_table(vocab: int, dim: int, seed: int, device) -> torch.Tensor:
@@ -219,7 +212,8 @@ class PassageDocs:
 
 class Corpus:
     """What a run makes once from its seed and hands to the program, the
-    traffic generator and the reference: ``params`` (device), ``table``
+    traffic generator and the reference: ``model`` (the configuration's
+    model module), ``params`` (device, in its layout), ``table``
     (host, (vocab, key_dim)), ``keys`` (host, (rows, key_dim) fp32), and
     ``values`` + ``stream`` + ``heldout`` (KNN-LM) or ``passages`` (RaLM),
     host int32."""
@@ -229,9 +223,10 @@ class Corpus:
     values = None
     passages = None
 
-    def __init__(self, cfg: dict, seed: int, device, block_rows: int = 1 << 20):
+    def __init__(self, cfg: dict, seed: int, device, block_rows: int = 1 << 20, model=None):
         self.cfg, self.seed = cfg, seed
-        self.params = make_params(cfg, seed, device)
+        self.model = model or cells.model(cfg)
+        self.params = make_params(cfg, seed, device, self.model)
         table = make_table(cfg["vocab_size"], cfg["key_dim"], seed, device)
         self.table = table.cpu().numpy()
         d = cfg["key_dim"]

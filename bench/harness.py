@@ -38,6 +38,7 @@ class RunView:
     rec: object
     trace: object
     kb_rows: int
+    model: object = None     # the configuration's model module (``bench.cells.model``)
 
 
 def log(msg: str) -> None:
@@ -63,11 +64,12 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, device="cuda",
     import repro_torch  # noqa: F401  (fails first where the program is absent)
     cell = cells.find(name, root)
     cfg = config or cell.config
+    model = cell.model if config is None else cells.model(cfg, root)
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    corpus = data.Corpus(cfg, seed, dev)
+    corpus = data.Corpus(cfg, seed, dev, model=model)
     log(f"{name}: inputs made at {time.monotonic() - t0:.1f} s")
     rec = serve.Recorder(seed)
     clients = int(cell.mix["clients"])
@@ -104,7 +106,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, device="cuda",
         log(f"{name}: traced part {tr.window_s:.3f} s, {len(tr.device)} device intervals, "
             f"{len(tr.spans)} spans, {inside:.1%} of kernel launches inside a span, "
             f"{time.monotonic() - t_tr:.1f} s with the profiler")
-    view = RunView(cfg=cfg, window=w, rec=rec, trace=tr, kb_rows=len(corpus.keys))
+    view = RunView(cfg=cfg, window=w, rec=rec, trace=tr, kb_rows=len(corpus.keys),
+                   model=model)
     metrics = {}
     if trace:
         for entry, reader in cell.per_layer:

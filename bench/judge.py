@@ -78,8 +78,9 @@ def readings(cfg: dict, corpus, requests: list, kb_calls: list, logit_records: d
              seed: int, device, tie_logit: float, ctrl: str = "") -> dict:
     """The three numbers (and with ``ctrl`` the control's three, prefixed
     ``ctrl_``) of one run, with ``token_gap``, the widest gap of a served
-    token, beside them. ``tie_logit`` is the gap below which two tokens tie."""
-    knn = cfg["workload"] == "knnlm"
+    token, beside them. ``tie_logit`` is the gap below which two tokens tie.
+    The reference model is ``corpus.model``'s, the configuration's own."""
+    knn, fwd = cfg["workload"] == "knnlm", corpus.model.forward
     sample = sample_requests(requests, seed)
     make_q = loops.knnlm_queries if knn else loops.ralm_queries
     judge_q = [make_q(r, cfg, corpus.table) for r in sample]
@@ -94,9 +95,9 @@ def readings(cfg: dict, corpus, requests: list, kb_calls: list, logit_records: d
         part = {p: (s[off:off + len(qs)], i[off:off + len(qs)]) for p, (s, i) in found.items()}
         off += len(qs)
         if knn:
-            g = loops.judge_knnlm(cfg, corpus.params, corpus.values, req, part, TIE, ctrl)
+            g = loops.judge_knnlm(cfg, fwd, corpus.params, corpus.values, req, part, TIE, ctrl)
         else:
-            g = loops.judge_ralm(cfg, corpus.params, corpus.passages, req, part, TIE, ctrl)
+            g = loops.judge_ralm(cfg, fwd, corpus.params, corpus.passages, req, part, TIE, ctrl)
         for key, gaps in [("", g["gaps"])] + ([("ctrl_", g["ctrl_gaps"])] if ctrl else []):
             out[key + "token_miss"] += sum(1 for x in gaps if x > tie_logit)
             out[key + "token_gap"] = max([out[key + "token_gap"]] + gaps)
@@ -111,7 +112,7 @@ def readings(cfg: dict, corpus, requests: list, kb_calls: list, logit_records: d
                 corpus.keys, q, k, ci[off:off + len(q), :kk], cs[off:off + len(q), :kk], ref))
         off += len(q)
     rows = [r for kind in sorted(logit_records) for r in logit_records[kind]]
-    le = loops.logit_errors(cfg, corpus.params, rows, ctrl)
+    le = loops.logit_errors(cfg, fwd, corpus.params, rows, ctrl)
     empty = not logit_records or not all(logit_records.values())
     out["logit_err"] = float("inf") if empty else le["err"]
     if not kb_calls:

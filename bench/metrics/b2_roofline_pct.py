@@ -1,7 +1,8 @@
 """B2 (decode attention, ``kernels/decode_attention.py``): the least time of
-the traced window's decode steps (in every layer, each slot's valid ring
-entries read once, q read and the output written; or the operations at the
-fp32 rate, whichever is longer) over the device time of B2's kernels."""
+the traced window's decode steps (in every attention layer of the
+configuration's model module, each slot's valid ring entries read once, q
+read and the output written; or the operations at the fp32 rate, whichever
+is longer) over the device time of B2's kernels."""
 from bench.yardstick import bound_s, decode_attention_work
 
 LAYER = "kernels"
@@ -22,5 +23,5 @@ def read(run):
     need = sum(bound_s(*decode_attention_work([min(p + 1, W) for p in pos], W,
                                               cfg["num_heads"], cfg["num_kv_heads"],
                                               cfg["head_dim"]))
-               for pos in run.rec.decode_lens) * cfg["num_layers"]
+               for pos in run.rec.decode_lens) * len(run.model.attention_layers(cfg))
     return 100.0 * need / t

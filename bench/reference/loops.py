@@ -15,9 +15,11 @@ A retrieval whose best candidates lie within ``tie`` of each other (float32
 rounding of a tie) may go either way: every such candidate is tried, and a
 position takes the smallest gap over them.
 
-``prec`` names the arithmetic of the reference; the control passes
-``ctrl="tf32"`` to read, at the same positions, the gap of the token that the
-TF32 reference puts first. Imports nothing of the program.
+``forward`` is the full causal pass of the configuration's model module
+(``bench.cells.model``). ``prec`` names the arithmetic of the reference;
+the control passes ``ctrl="tf32"`` to read, at the same positions, the gap
+of the token that the TF32 reference puts first. Imports nothing of the
+program.
 """
 from __future__ import annotations
 
@@ -26,7 +28,6 @@ import itertools
 import numpy as np
 import torch
 
-from bench.reference.model import forward
 from bench.reference.retrieval import encode, interpolate_logp, topk_scan
 
 MAX_VARIANTS = 16
@@ -57,7 +58,7 @@ def ralm_queries(req: dict, rc: dict, table) -> list:
             for r in range(0, len(T), s)]
 
 
-def judge_ralm(cfg: dict, params: dict, passages, req: dict, found: dict,
+def judge_ralm(cfg: dict, forward, params: dict, passages, req: dict, found: dict,
                tie: float, ctrl: str = "") -> dict:
     """Gaps of one RaLM request. ``found`` maps each precision to the scan's
     (scores, ids) of this request's retrieval queries (``ralm_queries``
@@ -96,7 +97,7 @@ def knnlm_queries(req: dict, rc: dict, table) -> list:
             for j in range(len(T))]
 
 
-def judge_knnlm(cfg: dict, params: dict, values, req: dict, found: dict, tie: float,
+def judge_knnlm(cfg: dict, forward, params: dict, values, req: dict, found: dict, tie: float,
                 ctrl: str = "") -> dict:
     """Gaps of one KNN-LM request, in the log of the interpolated
     distribution (nats); ``found`` as in :func:`judge_ralm`, over
@@ -121,7 +122,7 @@ def judge_knnlm(cfg: dict, params: dict, values, req: dict, found: dict, tie: fl
     return out
 
 
-def logit_errors(cfg: dict, params: dict, records: list, ctrl: str = "") -> dict:
+def logit_errors(cfg: dict, forward, params: dict, records: list, ctrl: str = "") -> dict:
     """Largest |program logit - reference logit| over the captured (context,
     logits) records, and with ``ctrl`` the control's |TF32 - fp32|."""
     out = {"err": 0.0, "ctrl_err": 0.0}

@@ -4,6 +4,11 @@ configurations it serves (Qwen3: RMSNorm, q and k each RMS-normalised per
 head before RoPE with split halves, GQA softmax attention, SwiGLU FFN,
 untied or tied head; optional qkv biases). No kernel, cache or batching. Imports nothing of the program.
 
+It is the model of every configuration file without a ``"reference"`` key
+(``bench.cells.model``), and provides what the harness asks of any model
+module: ``param_layout``, ``forward``, ``token_flops`` and
+``attention_layers``.
+
 ``prec`` is the arithmetic of every product: ``"fp32"`` (IEEE, TF32 off) or
 ``"tf32"`` (the control: TF32's 10-bit mantissa on each product's inputs,
 the card's own TF32 mode there, the same rounding emulated on the CPU).
@@ -107,3 +112,66 @@ def forward(cfg: dict, params: dict, tokens, prec: str = "fp32") -> torch.Tensor
         x = rms_norm(x, params["final_norm"], eps)
         head = params["embed"].T if cfg["tie_embeddings"] else params["unembed"]
         return mm(x, head, prec)
+
+
+def param_layout(cfg: dict) -> list:
+    """(path, shape, kind, scale) of every leaf of a dense decoder, in draw
+    order, in the port's parameter layout: ``embed``, ``final_norm``,
+    ``unembed`` and ``layers[i]`` {norm1, mixer {wq, wk, wv, wo[, bq, bk,
+    bv][, q_norm, k_norm]}, norm2, ffn {w_gate, w_up, w_down}}. Matrices are
+    (d_in, d_out)."""
+    d, V = cfg["d_model"], cfg["vocab_size"]
+    H, KV, hd, ff = cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"], cfg["d_ff"]
+    out = [(("embed",), (V, d), "w", d ** -0.5), (("final_norm",), (d,), "norm", 0.0)]
+    if not cfg["tie_embeddings"]:
+        out.append((("unembed",), (d, V), "w", d ** -0.5))
+    for i in range(cfg["num_layers"]):
+        p = ("layers", i)
+        out += [(p + ("norm1",), (d,), "norm", 0.0),
+                (p + ("mixer", "wq"), (d, H * hd), "w", 1 / math.sqrt(d)),
+                (p + ("mixer", "wk"), (d, KV * hd), "w", 1 / math.sqrt(d)),
+                (p + ("mixer", "wv"), (d, KV * hd), "w", 1 / math.sqrt(d)),
+                (p + ("mixer", "wo"), (H * hd, d), "w", 1 / math.sqrt(H * hd))]
+        if cfg["qkv_bias"]:
+            out += [(p + ("mixer", "bq"), (H * hd,), "bias", 0.0),
+                    (p + ("mixer", "bk"), (KV * hd,), "bias", 0.0),
+                    (p + ("mixer", "bv"), (KV * hd,), "bias", 0.0)]
+        if cfg["qk_norm"]:
+            out += [(p + ("mixer", "q_norm"), (hd,), "norm", 0.0),
+                    (p + ("mixer", "k_norm"), (hd,), "norm", 0.0)]
+        out += [(p + ("norm2",), (d,), "norm", 0.0),
+                (p + ("ffn", "w_gate"), (d, ff), "w", 1 / math.sqrt(d)),
+                (p + ("ffn", "w_up"), (d, ff), "w", 1 / math.sqrt(d)),
+                (p + ("ffn", "w_down"), (ff, d), "w", 1 / math.sqrt(ff))]
+    return out
+
+
+def dense_params(cfg: dict) -> tuple:
+    """(non-embedding parameters, LM head parameters) of a dense decoder as
+    the port builds it: per layer q/k/v/o (with biases where qkv_bias, and
+    q and k norms where qk_norm), the SwiGLU FFN and two norms; the final
+    norm; the head (the embedding itself where tied: its products count
+    all the same)."""
+    d, H, KV, hd = cfg["d_model"], cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"]
+    attn = d * (H + 2 * KV) * hd + H * hd * d
+    if cfg.get("qkv_bias"):
+        attn += (H + 2 * KV) * hd
+    if cfg.get("qk_norm"):
+        attn += 2 * hd
+    per_layer = attn + 3 * d * cfg["d_ff"] + 2 * d
+    return cfg["num_layers"] * per_layer + d, d * cfg["vocab_size"]
+
+
+def attention_layers(cfg: dict) -> list:
+    """The layers that attend over the ring cache (B2 in decode, B3 in
+    prefill): every one."""
+    return list(range(cfg["num_layers"]))
+
+
+def token_flops(cfg: dict, context: int) -> float:
+    """Model FLOPs of one token at a position with ``context`` tokens before
+    and including it: 2 per weight (non-embedding and head), plus attention's
+    q.k and p.v over the context in every attention layer."""
+    body, head = dense_params(cfg)
+    attn = 4.0 * len(attention_layers(cfg)) * cfg["num_heads"] * cfg["head_dim"] * context
+    return 2.0 * (body + head) + attn

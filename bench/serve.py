@@ -31,6 +31,7 @@ import torch
 MODEL_KEYS = ("family", "num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim",
               "d_ff", "vocab_size", "qkv_bias", "qk_norm", "rope_theta", "norm_eps",
               "tie_embeddings")
+OPTIONAL_MODEL_KEYS = ("moe_layer_rule", "sliding_window")
 LOGIT_KINDS = ("prefill", "step")
 LOGIT_SAMPLE = 32        # logits rows kept of each kind
 TRACE_SECONDS = 8.0      # a traced run profiles groups for this long after the window
@@ -123,10 +124,19 @@ def recorded_model(model_cls, cfg, rec: Recorder):
 
 
 def port_config(cfg: dict):
-    """The port's model config of a configuration file: its model keys as
-    the file states them."""
-    from repro_torch.configs.base import ModelConfig
-    return ModelConfig(name=cfg["name"], **{k: cfg[k] for k in MODEL_KEYS})
+    """The port's model config of a configuration file: every model field
+    the file states, as the file states it (``moe`` and ``ssm`` objects as
+    their sub-configs, ``block_pattern`` as a tuple)."""
+    from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
+    kw = {k: cfg[k] for k in MODEL_KEYS}
+    kw.update({k: cfg[k] for k in OPTIONAL_MODEL_KEYS if k in cfg})
+    if "moe" in cfg:
+        kw["moe"] = MoEConfig(**cfg["moe"])
+    if "ssm" in cfg:
+        kw["ssm"] = SSMConfig(**cfg["ssm"])
+    if "block_pattern" in cfg:
+        kw["block_pattern"] = tuple(cfg["block_pattern"])
+    return ModelConfig(name=cfg["name"], **kw)
 
 
 def build(cfg: dict, corpus, device, rec: Recorder, n_slots: int):

@@ -117,13 +117,13 @@ def test_the_sequential_loops_agree_with_the_reference_itself(small):
     found = loops.scan(corpus.keys, make_q(req, cfg, corpus.table), cfg.get("knn_k", 1) + 4,
                        "cpu", "tf32")
     if knn:
-        g = loops.judge_knnlm(cfg, corpus.params, corpus.values, req, found, 1e-5, "tf32")
+        g = loops.judge_knnlm(cfg, forward, corpus.params, corpus.values, req, found, 1e-5, "tf32")
     else:
-        g = loops.judge_ralm(cfg, corpus.params, corpus.passages, req, found, 1e-5, "tf32")
+        g = loops.judge_ralm(cfg, forward, corpus.params, corpus.passages, req, found, 1e-5, "tf32")
     assert max(g["gaps"]) == 0.0 and len(g["gaps"]) == 12
     bad = dict(req, tokens=[(t + 1) % cfg["vocab_size"] for t in req["tokens"]])
     if knn:
-        g = loops.judge_knnlm(cfg, corpus.params, corpus.values, bad, found, 1e-5)
+        g = loops.judge_knnlm(cfg, forward, corpus.params, corpus.values, bad, found, 1e-5)
     else:
-        g = loops.judge_ralm(cfg, corpus.params, corpus.passages, bad, found, 1e-5)
+        g = loops.judge_ralm(cfg, forward, corpus.params, corpus.passages, bad, found, 1e-5)
     assert min(g["gaps"]) > 1e-3

@@ -17,12 +17,32 @@ SMALL = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
              vocab_size=512, key_dim=32)
 
 
+def small(cfg: dict) -> dict:
+    """A configuration at test size: ``SMALL``'s widths, and a stated
+    ``moe``, ``ssm`` or ``block_pattern`` cut as the port's
+    ``configs.reduced`` cuts them: at most 4 experts of width 2 d, top-2 and
+    one shared expert; scan chunks of 32; each mixer kind of the pattern
+    once, in its order."""
+    cfg = dict(copy.deepcopy(cfg), **SMALL)
+    d = SMALL["d_model"]
+    if "moe" in cfg:
+        m = cfg["moe"]
+        cfg["moe"] = dict(m, num_experts=min(4, m["num_experts"]), top_k=min(2, m["top_k"]),
+                          d_expert=2 * d, num_shared_experts=min(1, m.get("num_shared_experts", 0)),
+                          dispatch_chunk=64)
+    if "ssm" in cfg:
+        cfg["ssm"] = dict(cfg["ssm"], chunk=32)
+    if "block_pattern" in cfg:
+        kinds = list(dict.fromkeys(cfg["block_pattern"]))
+        cfg["block_pattern"] = (kinds * SMALL["num_layers"])[:SMALL["num_layers"]]
+    return cfg
+
+
 def tiny(name: str, root: Path = ROOT):
     """-> (configuration, the port's model config) of cell ``name`` at test
-    size."""
+    size (``small``, and a small corpus and KB)."""
     from bench.serve import port_config
-    cfg = copy.deepcopy(cells.find(name, root).config)
-    cfg.update(SMALL)
+    cfg = small(cells.find(name, root).config)
     cfg["corpus"] = dict(cfg["corpus"], topics=8, topic_words=16)
     if cfg["workload"] == "knnlm":
         cfg["datastore_rows"] = 20000

@@ -2,11 +2,17 @@
 the work the benchmark measures, computed from shapes.
 
 The arithmetic is copied from the port's chip smoke run (``bound_ms``,
-``decode_bytes``) and from the JAX benchmarks' roofline (2 FLOPs a
-parameter a token), and frozen here so that a change to the program cannot
-move it. Every input is counted read once and every output written once.
+``decode_bytes``) and frozen here so that a change to the program cannot
+move it; a model's FLOPs a token (2 a parameter a token, as the JAX
+benchmarks' roofline counts) live in its model module under
+``bench/reference/``. Every input is counted read once and every output
+written once.
 """
 from __future__ import annotations
+
+# the dense decoder's model FLOPs; a configuration's own are its model
+# module's ``token_flops`` (``bench.cells.model``)
+from bench.reference.model import dense_params, token_flops  # noqa: F401
 
 # NVIDIA H100 SXM data sheet, dense rates: HBM3 bandwidth and the fp32 rate
 # outside the tensor cores (the port serves fp32 with TF32 off)
@@ -39,28 +45,3 @@ def decode_attention_work(lens, W: int, H: int, KV: int, hd: int) -> tuple:
     nbytes = 4.0 * (2 * B * H * hd + (2 * n + n_mean) * KV * hd + B)
     flops = 4.0 * H * hd * (n + n_mean)
     return nbytes, flops
-
-
-def dense_params(cfg: dict) -> tuple:
-    """(non-embedding parameters, LM head parameters) of a dense decoder as
-    the port builds it: per layer q/k/v/o (with biases where qkv_bias, and
-    q and k norms where qk_norm), the SwiGLU FFN and two norms; the final
-    norm; the head (the embedding itself where tied: its products count
-    all the same)."""
-    d, H, KV, hd = cfg["d_model"], cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"]
-    attn = d * (H + 2 * KV) * hd + H * hd * d
-    if cfg.get("qkv_bias"):
-        attn += (H + 2 * KV) * hd
-    if cfg.get("qk_norm"):
-        attn += 2 * hd
-    per_layer = attn + 3 * d * cfg["d_ff"] + 2 * d
-    return cfg["num_layers"] * per_layer + d, d * cfg["vocab_size"]
-
-
-def token_flops(cfg: dict, context: int) -> float:
-    """Model FLOPs of one token at a position with ``context`` tokens before
-    and including it: 2 per weight (non-embedding and head), plus attention's
-    q.k and p.v over the context in every layer."""
-    body, head = dense_params(cfg)
-    attn = 4.0 * cfg["num_layers"] * cfg["num_heads"] * cfg["head_dim"] * context
-    return 2.0 * (body + head) + attn
